@@ -1,0 +1,312 @@
+"""Drive vps_torch on one NVIDIA GPU (H100) and check it end to end.
+
+    python3 chip_smoke.py
+
+Phases, each printing its own line of numbers:
+  1. build    -- nvcc builds every kernel of the main path from vps_torch/csrc
+                 (sm_90a); prints the build time and the card (nvidia-smi).
+  2. kernels  -- each kernel against its plain PyTorch version on the card,
+                 at the main path's shapes (and a ragged one), with the
+                 tolerance stated; CUDA-event medians beside the bound.
+  3. main     -- PanopticFuseTrack at the full R-50 `half-flow` preset with
+                 seeded random weights, predict_video over seeded random
+                 1024x2048 frames (the first a reset); asserts finite outputs
+                 of the contract shapes and the kernel launch counts;
+                 prints steady-state frames/s and peak device memory.
+  4. small    -- the tiny `exact` model on a 64x128 clip on the card against
+                 the same model's plain CPU path: equal detections and keep
+                 sets, >= 0.999 semantic/panoptic agreement.
+Then a `kernels` JSON line, the nvidia-smi line and, last, the result line
+{"ok": true, "device": {...}}. Any failure raises: exit code != 0, no result.
+TF32 is off for matmuls and convolutions: float32 work runs in full float32,
+as the JAX reference computes it.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 outside tensor cores
+
+H, W = 1024, 2048
+FRAMES = 6  # frame 0 (reset) + 5 steady-state frames
+SEED = 0
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def cuda_ms(fn, iters=25, warmup=3):
+    """Median CUDA-event time of fn() in ms."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def correlation_bound_ms(shape, md, s2, dtype_name):
+    """Least time on the card: each input read once, the output written
+    once, over HBM rate vs 2*B*H*W*D^2*C flops over the dtype's peak."""
+    b, h, w, c = shape
+    d2 = (2 * (md // s2) + 1) ** 2
+    esize = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (2 * b * h * w * c + b * h * w * d2) * esize
+    flops = 2.0 * b * h * w * d2 * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_build():
+    from vps_torch.ops import cuda_build
+
+    t0 = time.perf_counter()
+    cuda_build.build("correlation.cu")
+    smi = nvidia_smi()
+    print(f"build: nvcc sm_90a correlation.cu "
+          f"{cuda_build.build_seconds['correlation.cu']:.2f}s "
+          f"(phase {time.perf_counter() - t0:.2f}s); card: {smi}")
+    return smi
+
+
+def phase_kernels():
+    """Kernel vs correlation_reference at both call sites (bf16 as on the
+    half-flow main path, and f32) and at two ragged shapes (the second with
+    C = 30, which takes the kernel's one-channel-per-load path). Tolerance:
+    f32 atol 1e-5 + rtol 1e-5 (summation order); bf16 one output ulp
+    (rtol 2^-7) + atol 1e-6: both round an f32 sum, taken in another order,
+    to bf16, which can land one ulp apart."""
+    import torch
+    from vps_torch.ops import correlation, correlation_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sites = {
+        "liteflow": ((1, H // 4, W // 4, 256), 4, 1),
+        "flownetc": ((1, H // 16, W // 16, 256), 20, 2),
+    }
+    cases = [(name, shape, md, s2, dt) for name, (shape, md, s2) in sites.items()
+             for dt in ("bfloat16", "float32")]
+    cases += [("ragged", (2, 37, 53, 96), 4, 1, dt) for dt in ("bfloat16", "float32")]
+    # C = 30: the one-channel-per-load staging path and a partial chunk
+    cases += [("ragged", (2, 37, 53, 30), 6, 2, dt) for dt in ("bfloat16", "float32")]
+    max_err = 0.0
+    per_frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    bounds = []
+    for name, shape, md, s2, dt in cases:
+        dtype = getattr(torch, dt)
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        got = correlation(f1, f2, md, s2)
+        want = correlation_reference(f1, f2, md, s2)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        rtol, atol = (2.0 ** -7, 1e-6) if dt == "bfloat16" else (1e-5, 1e-5)
+        limit = atol + rtol * want.float().abs()
+        ok = bool((err <= limit).all())
+        max_err = max(max_err, float(err.max()))
+        ms = cuda_ms(lambda: correlation(f1, f2, md, s2))
+        plain = cuda_ms(lambda: correlation_reference(f1, f2, md, s2), iters=20)
+        bound, by = correlation_bound_ms(shape, md, s2, dt)
+        print(f"kernel correlation {name} {tuple(shape)} md={md} s2={s2} {dt}: "
+              f"max_abs_err={float(err.max()):.3e} (tol {atol:g} + {rtol:g}*|ref|) "
+              f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={bound:.4f} ({by})")
+        if not ok:
+            raise AssertionError(f"correlation kernel disagrees at {name} {shape} {dt}")
+        if name in sites and dt == "bfloat16":  # the half-flow main path
+            per_frame["ms"] += ms
+            per_frame["plain_ms"] += plain
+            per_frame["bound_ms"] += bound
+            bounds.append((bound, by))
+    return dict(name="correlation", route="cuda",
+                source="vps_torch/csrc/correlation.cu",
+                replaces="vps_tpu/ops/correlation.py:32",
+                max_abs_err=max_err, bound_by=max(bounds)[1],
+                library_ms=None, **per_frame)
+
+
+def _check_outputs(out, frames, cap_det, h, w):
+    import torch
+
+    shapes = {
+        "fcn_outputs": (frames, h, w), "panoptic_outputs": (frames, h, w),
+        "det_bboxes": (frames, cap_det, 4), "det_probs": (frames, cap_det),
+        "det_labels": (frames, cap_det), "det_valid": (frames, cap_det),
+        "panoptic_cls_inds": (frames, cap_det),
+        "panoptic_cls_prob": (frames, cap_det),
+        "panoptic_det_obj_ids": (frames, cap_det),
+        "panoptic_valid": (frames, cap_det), "num_keep": (frames,),
+    }
+    for key, shape in shapes.items():
+        t = out[key]
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{key}: shape {tuple(t.shape)} != {shape}")
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{key}: non-finite values")
+    if not bool(((out["fcn_outputs"] >= 0) & (out["fcn_outputs"] < 19)).all()):
+        raise AssertionError("semantic labels out of range")
+    pan = out["panoptic_outputs"]
+    if not bool(((pan >= 0) & (pan < 11 + cap_det)).all()):
+        raise AssertionError("panoptic ids out of range")
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_main(smi, device="cuda", h=H, w=W):
+    import torch
+    from vps_torch import zoo
+    from vps_torch.models.detectors import (
+        PanopticFuseTrack, empty_track_state, predict_video, random_init_)
+    from vps_torch.ops import correlation
+
+    cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), "half-flow")
+    cfg.pop("type")
+    tcfg = zoo.fusetrack_test_cfg()
+    t0 = time.perf_counter()
+    det = random_init_(PanopticFuseTrack(test_cfg=tcfg, device=device, **cfg),
+                       seed=SEED)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED)
+    frames = torch.from_numpy(
+        rng.randn(FRAMES, 1, h, w, 3).astype(np.float32)).to(device)
+    state = empty_track_state(256, device=device)
+    cap_det = tcfg["panoptic"]["max_det"]
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    correlation.launches = 0
+    t0 = time.perf_counter()
+    first, carry = predict_video(det, frames[:1], [True], state, frames[0])
+    _sync(device)
+    t1 = time.perf_counter()
+    rest, carry = predict_video(det, frames[1:], [False] * (FRAMES - 1),
+                                carry[0], carry[2], prev_feats=carry[1])
+    _sync(device)
+    t2 = time.perf_counter()
+    launches = correlation.launches
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+    out = {k: torch.cat([first[k], rest[k]]) for k in first}
+    _check_outputs(out, FRAMES, cap_det, h, w)
+    if launches != 2 * FRAMES:
+        raise AssertionError(f"correlation launches {launches} != 2 per frame "
+                             f"x {FRAMES} frames")
+    ndet = out["det_valid"].sum(1).tolist()
+    nkeep = out["num_keep"].tolist()
+    fps = (FRAMES - 1) / (t2 - t1)
+    print(f"main: PanopticFuseTrack R-50 half-flow {h}x{w} x{FRAMES} frames "
+          f"(frame 0 reset), init {init_s:.1f}s, first frame {t1 - t0:.3f}s, "
+          f"steady {fps:.3f} frames/s over {FRAMES - 1} frames, "
+          f"peak mem {peak / 2**30:.2f} GiB, correlation launches {launches} "
+          f"(2/frame), dets/frame {ndet}, kept/frame {nkeep}, "
+          f"TF32 off; card: {smi}")
+    return launches
+
+
+def phase_small(device="cuda"):
+    """Port on the card vs the port's plain CPU path, same weights, tiny
+    exact-preset model (R-18, TinyFlow) on a 3-frame 64x128 clip."""
+    import torch
+    from vps_torch import zoo
+    from vps_torch.models.detectors import (
+        PanopticFuseTrack, empty_track_state, predict_video, random_init_)
+
+    cfg = zoo.exact_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()))
+    cfg.pop("type")
+    tcfg = zoo.fusetrack_test_cfg()
+    tcfg["rpn"].update(nms_pre=128, max_num=64)
+    tcfg["panoptic"].update(score_thresh=0.2, max_det=12)
+    cpu = random_init_(PanopticFuseTrack(test_cfg=tcfg, device="cpu", **cfg), 1)
+    # a milder classifier than random_init_'s: probabilities that saturate to
+    # 1.0 in f32 tie, and ulp-level differences between the two devices then
+    # reorder the detections
+    with torch.no_grad():
+        cpu.bbox_head.fc_cls.weight.mul_(0.25)
+        cpu.bbox_head.fc_cls.bias.mul_(0.25)
+    gpu = PanopticFuseTrack(test_cfg=tcfg, device=device, **cfg)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    rng = np.random.RandomState(SEED + 1)
+    clip = torch.from_numpy(rng.randn(3, 1, 64, 128, 3).astype(np.float32))
+    resets = [True, False, False]
+    want, _ = predict_video(cpu, clip, resets, empty_track_state(64, device="cpu"),
+                            clip[0])
+    got, _ = predict_video(gpu, clip.to(device), resets,
+                           empty_track_state(64, device=device),
+                           clip[0].to(device))
+    got = {k: v.cpu() for k, v in got.items()}
+    for k in ("det_valid", "det_labels", "num_keep", "panoptic_valid",
+              "panoptic_cls_inds", "panoptic_det_obj_ids"):
+        if not torch.equal(got[k].long(), want[k].long()):
+            raise AssertionError(f"small clip: {k} differs on the card")
+    box_diff = (got["det_bboxes"] - want["det_bboxes"]).abs()
+    box_err = float(box_diff.max())
+    sseg = float((got["fcn_outputs"] == want["fcn_outputs"]).float().mean())
+    pan = float((got["panoptic_outputs"] == want["panoptic_outputs"]).float().mean())
+    ndet = int(want["det_valid"].sum())
+    print(f"small: tiny exact 64x128 x3 card vs cpu: dets {ndet} equal, "
+          f"box max err {box_err:.2e} (tol 2e-2), semantic agree {sseg:.5f}, "
+          f"panoptic agree {pan:.5f} (tol 0.999)")
+    if ndet == 0 or box_err > 2e-2 or sseg < 0.999 or pan < 0.999:
+        worst = np.unravel_index(int(box_diff.argmax()), tuple(box_diff.shape))
+        print(f"small: worst box {worst}: card {got['det_bboxes'][worst[:2]]} "
+              f"cpu {want['det_bboxes'][worst[:2]]} probs card "
+              f"{got['det_probs'][worst[:2]]} cpu {want['det_probs'][worst[:2]]}")
+        raise AssertionError("small clip disagrees between card and cpu")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    import vps_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    smi = phase_build()
+    kernel = phase_kernels()
+    kernel["launches"] = phase_main(smi)
+    phase_small()
+    print(f"total {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"kernels": [kernel]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,188 @@
+"""Port parity, ops: every vps_torch op against its vps_tpu counterpart on
+the same seeded numpy inputs, on the CPU (where the correlation wrapper takes
+its plain version). The last test holds the CUDA kernel against the plain
+version and needs a card.
+
+Tolerances: f32 paths agree to summation order (atol 1e-5 on O(1) values);
+index-valued results (NMS keep sets, sample positions) must be identical.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+from vps_tpu.ops import correlation as jax_correlation
+from vps_tpu.ops import (
+    channel_norm as jax_channel_norm,
+    flow_warp as jax_flow_warp,
+    multilevel_roi_align as jax_multilevel_roi_align,
+    nms as jax_nms,
+    resample2d as jax_resample2d,
+)
+from vps_tpu.ops.deform_conv import (
+    deform_conv2d_multilevel as jax_deform_conv2d_multilevel,
+)
+
+from vps_torch import ops
+
+T = torch.from_numpy
+
+
+@pytest.mark.parametrize("shape,md,s2", [
+    ((2, 12, 17, 32), 4, 1),   # LiteFlowNetCorr geometry, ragged width
+    ((1, 24, 30, 16), 20, 2),  # FlowNetC geometry (441 channels)
+])
+def test_correlation_f32(shape, md, s2):
+    rng = np.random.RandomState(0)
+    f1 = rng.randn(*shape).astype(np.float32)
+    f2 = rng.randn(*shape).astype(np.float32)
+    want = np.asarray(jax_correlation(jnp.asarray(f1), jnp.asarray(f2), md, s2))
+    got = ops.correlation(T(f1), T(f2), md, s2).numpy()
+    steps = 2 * (md // s2) + 1
+    assert got.shape == shape[:3] + (steps * steps,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_correlation_bf16():
+    """bf16 inputs. _correlation_xla rounds each product to bf16 before its
+    f32 mean (vps_tpu/ops/correlation.py:125); the port keeps products in
+    f32. Both round the result to bf16. Tolerance: 2 bf16 ulps of the value
+    (rtol 2^-7) plus 2^-8 * mean|f1| * mean|f2| for the product roundings."""
+    rng = np.random.RandomState(1)
+    shape = (1, 10, 13, 64)
+    f1 = rng.randn(*shape).astype(np.float32)
+    f2 = rng.randn(*shape).astype(np.float32)
+    want = np.asarray(jax_correlation(jnp.asarray(f1, jnp.bfloat16),
+                                      jnp.asarray(f2, jnp.bfloat16), 4, 1)
+                      .astype(jnp.float32))
+    got = ops.correlation(T(f1).bfloat16(), T(f2).bfloat16(), 4, 1)
+    assert got.dtype == torch.bfloat16
+    atol = 2.0 ** -8 * np.abs(f1).mean() * np.abs(f2).mean()
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2.0 ** -7,
+                               atol=atol)
+
+
+def test_correlation_rejects_bad_input():
+    a = torch.zeros(1, 4, 4, 8)
+    with pytest.raises(ValueError):
+        ops.correlation(a, torch.zeros(1, 4, 5, 8), 2, 1)
+    with pytest.raises(TypeError):
+        ops.correlation(a.half(), a.half(), 2, 1)
+
+
+@pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
+def test_flow_warp(sampling):
+    rng = np.random.RandomState(2)
+    x = rng.randn(2, 9, 14, 24).astype(np.float32)
+    flow = rng.uniform(-3, 3, (2, 9, 14, 2)).astype(np.float32)
+    want = np.asarray(jax_flow_warp(jnp.asarray(x), jnp.asarray(flow),
+                                    sampling=sampling))
+    got = ops.flow_warp(T(x), T(flow), sampling=sampling).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def test_resample2d_and_channel_norm():
+    rng = np.random.RandomState(3)
+    x = rng.randn(1, 11, 13, 3).astype(np.float32)
+    flow = rng.uniform(-4, 4, (1, 11, 13, 2)).astype(np.float32)
+    want = np.asarray(jax_resample2d(jnp.asarray(x), jnp.asarray(flow)))
+    got = ops.resample2d(T(x), T(flow)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(ops.channel_norm(T(x)).numpy(),
+                               np.asarray(jax_channel_norm(jnp.asarray(x))),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
+def test_deform_conv2d_multilevel(sampling):
+    rng = np.random.RandomState(4)
+    shapes = [(12, 16), (6, 8), (3, 4)]
+    cin, cout = 16, 8
+    xs = [rng.randn(1, h, w, cin).astype(np.float32) for h, w in shapes]
+    offs = [rng.uniform(-2.5, 2.5, (1, h, w, 18)).astype(np.float32)
+            for h, w in shapes]
+    w_hwio = (rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)
+    want = jax_deform_conv2d_multilevel(
+        [jnp.asarray(x) for x in xs], [jnp.asarray(o) for o in offs],
+        jnp.asarray(w_hwio), padding=1, sampling=sampling)
+    got = ops.deform_conv2d_multilevel(
+        [T(x) for x in xs], [T(o) for o in offs],
+        T(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))), padding=1,
+        sampling=sampling)
+    for g, wnt in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
+def test_multilevel_roi_align(sampling):
+    rng = np.random.RandomState(5)
+    strides = [4, 8, 16, 32]
+    shapes = [(32, 48), (16, 24), (8, 12), (4, 6)]
+    feats = [rng.randn(h, w, 8).astype(np.float32) for h, w in shapes]
+    boxes = [
+        [10.0, 12.0, 40.0, 50.0],      # level 0
+        [0.0, 0.0, 111.0, 111.0],      # sqrt(area) = 112: on the 0/1 boundary
+        [20.0, 5.0, 243.0, 228.0],     # sqrt(area) = 224: on the 1/2 boundary
+        [30.0, 30.0, 85.0, 85.0],      # sqrt(area) = 56: level 0 exactly
+        [-20.0, -30.0, 15.0, 10.0],    # partly off-map (negative)
+        [150.0, 100.0, 260.0, 190.0],  # past the right/bottom edge
+        [400.0, 300.0, 420.0, 330.0],  # wholly off-map
+        [5.0, 5.0, 4.0, 4.0],          # degenerate (x2 < x1)
+    ]
+    rand = rng.uniform(0, 150, (8, 2))
+    wh = rng.uniform(2, 160, (8, 2))
+    boxes += np.concatenate([rand, rand + wh], 1).tolist()
+    rois = np.asarray(boxes, np.float32)
+    valid = np.ones(len(rois), bool)
+    valid[3] = False
+    for out_size, sn in ((7, 2), (14, 1)):
+        want = jax_multilevel_roi_align(
+            [jnp.asarray(f) for f in feats], jnp.asarray(rois), strides,
+            out_size, sn, valid=jnp.asarray(valid), sampling=sampling)
+        got = ops.multilevel_roi_align(
+            [T(f) for f in feats], T(rois), strides, out_size, sn,
+            valid=T(valid), sampling=sampling)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nms_identical_keep_sets(seed):
+    """Same survivors as the JAX fixpoint, including exact score ties
+    (stable descending order) and invalid slots."""
+    rng = np.random.RandomState(10 + seed)
+    n = 96
+    xy = rng.uniform(0, 60, (n, 2))
+    wh = rng.uniform(4, 30, (n, 2))
+    boxes = np.concatenate([xy, xy + wh], 1).astype(np.float32)
+    boxes[10:20] = boxes[0]  # duplicated boxes
+    scores = rng.choice(np.linspace(0.1, 0.9, 7), n).astype(np.float32)  # ties
+    valid = rng.rand(n) > 0.2
+    for thr in (0.3, 0.5, 0.7):
+        want = np.asarray(jax_nms(jnp.asarray(boxes), jnp.asarray(scores), thr,
+                                  valid=jnp.asarray(valid)))
+        got = ops.nms(T(boxes), T(scores), thr, valid=T(valid)).numpy()
+        np.testing.assert_array_equal(got, want)
+        assert not got[~valid].any()
+
+
+@pytest.mark.cuda
+def test_correlation_kernel_matches_plain_on_card():
+    """The CUDA kernel against correlation_reference on the card, f32 and
+    bf16, at both call-site geometries and a ragged one. f32: 1e-5 (sum
+    order); bf16: one output ulp (rtol 2^-7) + 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape, md, s2 in [((1, 32, 64, 256), 4, 1), ((1, 16, 32, 256), 20, 2),
+                          ((2, 37, 53, 96), 4, 1), ((2, 37, 53, 30), 6, 2)]:
+        for dt, rtol, atol in ((torch.float32, 0, 1e-5),
+                               (torch.bfloat16, 2.0 ** -7, 1e-6)):
+            f1 = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            f2 = torch.randn(shape, generator=gen, device="cuda").to(dt)
+            got = ops.correlation(f1, f2, md, s2)
+            want = ops.correlation_reference(f1, f2, md, s2)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                       atol=atol)

@@ -1,0 +1,382 @@
+"""PanopticFuseTrack video inference (port of
+vps_tpu/models/detectors/panoptic.py: PanopticFuseTrack.predict and
+predict_video).
+
+Same per-frame contract as the JAX detector: ``predict`` takes a (1, H, W, 3)
+normalised float frame, its reference frame and the TrackState, and returns
+the same output dict with the same fixed capacities and validity masks
+(proposals max_num, det max_det, track memory) plus the new TrackState.
+Submodule names are the mmdet state_dict prefixes (``backbone``, ``neck``,
+``extra_neck``, ``rpn_head``, ``bbox_head``, ``mask_head``, ``panopticFPN``,
+``track_head``, ``flownet2``). Inference only: no autograd anywhere.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from vps_torch import resolve_device
+from vps_torch.models.bbox_head import SharedFCBBoxHead
+from vps_torch.models.bfp_tcea import BFPTcea
+from vps_torch.models.detectors.panoptic_ops import (
+    TrackState,
+    mask_removal_and_fuse,
+    panoptic_dets,
+    track_assign,
+)
+from vps_torch.models.flow.flownet2 import FlowNet2, TinyFlowNet
+from vps_torch.models.fpn import FPN
+from vps_torch.models.layers import (
+    FrozenBatchNorm,
+    compute_dtype,
+    resize_bilinear,
+)
+from vps_torch.models.mask_head import FCNMaskHead
+from vps_torch.models.panoptic_fpn import UPSNetFPN
+from vps_torch.models.resnet import Bottleneck, ResNet
+from vps_torch.models.rpn_head import RPNHead, rpn_proposals
+from vps_torch.models.track_head import TrackHead, compute_comp_scores
+from vps_torch.ops.anchors import AnchorGenerator
+from vps_torch.ops.box import bbox_overlaps
+from vps_torch.ops.roi_align import multilevel_roi_align
+
+IMG_MEAN = np.asarray([123.675, 116.28, 103.53], np.float32)
+IMG_STD = np.asarray([58.395, 57.12, 57.375], np.float32)
+
+
+# named ranges of predict's stages, read by torch.profiler (vps_torch.profile)
+_stage = torch.profiler.record_function
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+class PanopticFuseTrack(nn.Module):
+    """Flow-fused, tracking panoptic detector, built from the zoo config
+    dicts (``zoo.fusetrack_model_cfg()`` minus ``type``)."""
+
+    def __init__(self, backbone: Dict[str, Any], neck: Dict[str, Any],
+                 rpn_head: Dict[str, Any], bbox_head: Dict[str, Any],
+                 mask_head: Dict[str, Any], panoptic: Dict[str, Any],
+                 extra_neck: Dict[str, Any], track_head: Dict[str, Any],
+                 test_cfg: Dict[str, Any],
+                 bbox_roi_extractor: Optional[Dict[str, Any]] = None,
+                 mask_roi_extractor: Optional[Dict[str, Any]] = None,
+                 flow: Optional[Dict[str, Any]] = None,
+                 flow_input_scale: float = 0.5, device="cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.test_cfg = test_cfg
+        self.flow_input_scale = flow_input_scale
+        bdt = compute_dtype(backbone.get("compute_dtype"))
+        self.backbone = ResNet(backbone.get("depth", 50),
+                               backbone.get("num_stages", 4),
+                               backbone.get("out_indices", (0, 1, 2, 3)),
+                               dtype=bdt, device=dev)
+        self.neck = FPN(neck.get("in_channels", (256, 512, 1024, 2048)),
+                        neck.get("out_channels", 256),
+                        neck.get("num_outs", 5), dtype=bdt, device=dev)
+        if extra_neck.get("type", "BFPTcea") != "BFPTcea":
+            raise ValueError(f"extra_neck {extra_neck.get('type')} is not ported")
+        self.extra_neck = BFPTcea(
+            in_channels=extra_neck.get("in_channels", 256),
+            num_levels=extra_neck.get("num_levels", 5),
+            refine_level=extra_neck.get("refine_level", 0),
+            refine_type=extra_neck.get("refine_type", "conv"),
+            nframes=extra_neck.get("nframes", 2),
+            center=extra_neck.get("center", 0),
+            compute_dtype=compute_dtype(extra_neck.get("compute_dtype"),
+                                        torch.bfloat16),
+            warp_sampling=extra_neck.get("warp_sampling", "bilinear"),
+            device=dev)
+        self.anchor_scales = list(rpn_head.get("anchor_scales", [8]))
+        self.anchor_ratios = list(rpn_head.get("anchor_ratios", [0.5, 1.0, 2.0]))
+        self.anchor_strides = list(rpn_head.get("anchor_strides",
+                                                [4, 8, 16, 32, 64]))
+        self.rpn_head = RPNHead(
+            rpn_head.get("in_channels", 256), rpn_head.get("feat_channels", 256),
+            len(self.anchor_scales) * len(self.anchor_ratios), device=dev)
+        self.bbox_head = SharedFCBBoxHead(
+            bbox_head.get("num_fcs", 2), bbox_head.get("in_channels", 256),
+            bbox_head.get("fc_out_channels", 1024),
+            bbox_head.get("roi_feat_size", 7), bbox_head.get("num_classes", 9),
+            bbox_head.get("reg_class_agnostic", False), device=dev)
+        self.mask_head = FCNMaskHead(
+            mask_head.get("num_convs", 4), mask_head.get("in_channels", 256),
+            mask_head.get("conv_out_channels", 256),
+            mask_head.get("num_classes", 9), device=dev)
+        self.panopticFPN = UPSNetFPN(
+            panoptic.get("in_channels", 256), panoptic.get("out_channels", 128),
+            panoptic.get("num_levels", 4),
+            panoptic.get("num_things_classes", 8),
+            panoptic.get("num_classes", 19),
+            dcn_sampling=panoptic.get("dcn_sampling", "bilinear"),
+            head_stride=panoptic.get("head_stride", 4),
+            compute_dtype=compute_dtype(panoptic.get("compute_dtype"),
+                                        torch.bfloat16),
+            device=dev)
+        if panoptic.get("dcn_window") is not None:
+            raise ValueError("panoptic.dcn_window (windowed DCN kernel) is "
+                             "not ported yet")
+        self.track_head = TrackHead(
+            track_head.get("num_fcs", 2), track_head.get("in_channels", 256),
+            track_head.get("roi_feat_size", 7),
+            track_head.get("fc_out_channels", 1024), device=dev)
+        self.match_coeff = tuple(track_head.get("match_coeff", (1.0, 2.0, 10.0)))
+        flow = flow or {}
+        if flow.get("type") == "TinyFlow":
+            self.flownet2 = TinyFlowNet(device=dev)
+        else:
+            self.flownet2 = FlowNet2(
+                compute_dtype=compute_dtype(flow.get("compute_dtype"),
+                                            torch.bfloat16), device=dev)
+        # every RoI (7x7 and 14x14) samples with bbox_roi_extractor's
+        # settings, as in the JAX detector; mask_roi_extractor is accepted
+        # for config compatibility
+        self.bbox_roi_cfg = dict(bbox_roi_extractor or {})
+        self.device = dev
+        self.register_buffer("img_mean", torch.from_numpy(IMG_MEAN).to(dev),
+                             persistent=False)
+        self.register_buffer("img_std", torch.from_numpy(IMG_STD).to(dev),
+                             persistent=False)
+        self.eval()
+        self.requires_grad_(False)
+
+    # ------------------------------------------------------------------
+    # shared pieces
+    # ------------------------------------------------------------------
+
+    def extract_feat(self, img):
+        """img (B, H, W, 3) -> FPN pyramid, tuple of (B, 256, H_l, W_l) f32."""
+        return self.neck(self.backbone(_nchw(img)))
+
+    def compute_flow(self, img, ref_img, scale_factor: float = 0.25):
+        """Denormalise, optionally downscale by flow_input_scale, pad to a
+        multiple of 64, FlowNet2, trim, resize to h * scale_factor and
+        rescale the flow values. Returns (B, oh, ow, 2)."""
+        rgb = img * self.img_std + self.img_mean
+        ref_rgb = ref_img * self.img_std + self.img_mean
+        h, w = img.shape[1:3]
+        fis = self.flow_input_scale
+        if fis != 1.0:
+            fh, fw = int(round(h * fis)), int(round(w * fis))
+            rgb = _nhwc(resize_bilinear(_nchw(rgb), (fh, fw)))
+            ref_rgb = _nhwc(resize_bilinear(_nchw(ref_rgb), (fh, fw)))
+        else:
+            fh, fw = h, w
+        pad = (0, 0, 0, (-fw) % 64, 0, (-fh) % 64)
+        flow = self.flownet2(F.pad(rgb, pad), F.pad(ref_rgb, pad))
+        flow = flow[:, :fh, :fw, :]
+        if scale_factor != fis:
+            oh, ow = int(round(h * scale_factor)), int(round(w * scale_factor))
+            flow = _nhwc(resize_bilinear(_nchw(flow), (oh, ow))) * (
+                scale_factor / fis)
+        return flow
+
+    def _roi_feats(self, feats, rois, out_size, valid=None):
+        strides = self.bbox_roi_cfg.get("featmap_strides", [4, 8, 16, 32])
+        roi_layer = self.bbox_roi_cfg.get("roi_layer", {})
+        roi_dt = compute_dtype(self.bbox_roi_cfg.get("compute_dtype"),
+                               torch.bfloat16) or torch.float32
+        return multilevel_roi_align(
+            [f[0].to(roi_dt).permute(1, 2, 0) for f in feats[:len(strides)]],
+            rois, strides, out_size, roi_layer.get("sample_num", 2),
+            valid=valid, sampling=roi_layer.get("sampling", "bilinear"))
+
+    def _anchors_for(self, cls_outs):
+        anchors = []
+        for lvl, stride in enumerate(self.anchor_strides):
+            gen = AnchorGenerator(stride, self.anchor_scales, self.anchor_ratios)
+            anchors.append(gen.grid_anchors(tuple(cls_outs[lvl].shape[-2:]),
+                                            stride, device=self.device))
+        return anchors
+
+    def _fused_feats(self, img, ref_img, ref_feats=None):
+        """Flow + backbone (x2 at video starts, x1 in steady state) + the
+        fuse neck. Returns (fused feats, ref feats, plain current feats)."""
+        with _stage("backbone_fpn"):
+            x = self.extract_feat(img)
+            ref_x = (ref_feats if ref_feats is not None
+                     else self.extract_feat(ref_img))
+        with _stage("flownet2"):
+            flow = self.compute_flow(img, ref_img, 0.25)
+        with _stage("fuse_neck"):
+            return self.extra_neck(x, ref_x, flow), ref_x, x
+
+    # ------------------------------------------------------------------
+    # inference, one frame
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def predict(self, img, ref_img, track_state: TrackState,
+                img_shape_withoutpad: Optional[Tuple[int, int]] = None,
+                ref_feats=None):
+        """Single-frame FuseTrack inference -> (outputs dict, new TrackState).
+        ``ref_feats``: the previous frame's plain FPN pyramid (the previous
+        outputs' ``fpn_feats``); None recomputes it from ref_img."""
+        tcfg = self.test_cfg
+        h, w = img.shape[1:3]
+        x, _, plain_x = self._fused_feats(img, ref_img, ref_feats)
+        with _stage("semantic_head"):
+            fcn_output, _ = self.panopticFPN(
+                list(x[:self.panopticFPN.num_levels]))
+
+        with _stage("rpn"):
+            cls_outs, reg_outs = self.rpn_head(x)
+            anchors = self._anchors_for(cls_outs)
+            rcfg = tcfg["rpn"]
+            proposals, _, prop_valid = rpn_proposals(
+                [c[0].permute(1, 2, 0) for c in cls_outs],
+                [r[0].permute(1, 2, 0) for r in reg_outs], anchors, (h, w),
+                nms_pre=rcfg.get("nms_pre", 1000),
+                nms_thr=rcfg.get("nms_thr", 0.7),
+                max_num=rcfg.get("max_num", 1000))
+
+        with _stage("bbox_dets"):
+            cls_score, bbox_pred = self.bbox_head(
+                self._roi_feats(x, proposals, 7, valid=prop_valid))
+            pano_cfg = tcfg.get("panoptic", {})
+            det_boxes, det_probs, det_cls, det_valid = panoptic_dets(
+                proposals, prop_valid, torch.softmax(cls_score, -1), bbox_pred,
+                (h, w), score_thresh=pano_cfg.get("score_thresh", 0.6),
+                nms_thresh=pano_cfg.get("nms_thresh", 0.5),
+                top_n=pano_cfg.get("max_det", 100),
+                reg_weights=tuple(pano_cfg.get("bbox_reg_weights",
+                                               (10.0, 10.0, 5.0, 5.0))))
+            det_labels = (det_cls - 1).clamp(min=0)
+
+        with _stage("track"):  # against the memory snapshot
+            det_roi_feats = self._roi_feats(x, det_boxes, 7, valid=det_valid)
+            st = track_state
+            match_logprob = torch.log_softmax(
+                self.track_head(det_roi_feats, st.feats, st.valid), -1)
+            label_delta = (st.labels[None, :] == det_labels[:, None]).float()
+            ious = bbox_overlaps(det_boxes, st.bboxes) * st.valid[None, :]
+            comp = compute_comp_scores(match_logprob, det_probs[:, None], ious,
+                                       label_delta, self.match_coeff)
+            col_ok = torch.cat([torch.ones(1, dtype=torch.bool,
+                                           device=self.device), st.valid])
+            comp = torch.where(col_ok[None, :], comp,
+                               torch.full_like(comp, -float("inf")))
+            det_obj_ids, new_state = track_assign(
+                comp, det_boxes, det_labels, det_roi_feats, det_valid, st)
+
+        with _stage("mask_fusion"):
+            mask_score = self.mask_head(
+                self._roi_feats(x, det_boxes, 14, valid=det_valid))
+            mask_score = mask_score.gather(1, det_cls[:, None, None, None].expand(
+                -1, 1, *mask_score.shape[2:]))[:, 0]
+            fusion = mask_removal_and_fuse(
+                det_boxes, det_probs, det_cls, det_valid, det_obj_ids,
+                mask_score, fcn_output[0],
+                num_stuff=self.panopticFPN.num_stuff_classes)
+
+        panoptic, sseg = fusion.panoptic, fusion.sseg
+        if img_shape_withoutpad is not None:
+            ph, pw = img_shape_withoutpad
+            panoptic, sseg = panoptic[:ph, :pw], sseg[:ph, :pw]
+        outputs = {
+            "fcn_outputs": sseg,
+            "panoptic_outputs": panoptic,
+            "panoptic_cls_inds": fusion.keep_cls,
+            "panoptic_cls_prob": fusion.keep_probs,
+            "panoptic_det_obj_ids": fusion.keep_obj_ids,
+            "panoptic_valid": fusion.keep_valid,
+            "num_keep": fusion.num_keep,
+            "det_bboxes": det_boxes,
+            "det_labels": det_labels,
+            "det_probs": det_probs,
+            "det_valid": det_valid,
+            # carry for the next frame's ref_feats
+            "fpn_feats": tuple(plain_x),
+        }
+        return outputs, new_state
+
+
+@torch.inference_mode()
+def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
+                  prev_img, prev_feats=None,
+                  img_shape_withoutpad: Optional[Tuple[int, int]] = None):
+    """Run a clip of frames through ``predict`` one frame at a time.
+
+    imgs: (T, B, H, W, 3); resets: T bools -- frame t starts a new video
+    (tracking state cleared, its reference is the frame itself, the feature
+    carry recomputed). prev_img / prev_feats: last frame (and its pyramid) of
+    the previous chunk; prev_feats=None computes it from prev_img. Returns
+    (outputs stacked over frames without the fpn_feats carry,
+    (state, feats, last_img))."""
+    if prev_feats is None:
+        prev_feats = det.extract_feat(prev_img)
+    state, ref_feats, prev = track_state, prev_feats, prev_img
+    frames = []
+    for t in range(imgs.shape[0]):
+        img = imgs[t]
+        if bool(resets[t]):
+            state = TrackState(*(torch.zeros_like(a) for a in state))
+            ref_img = img
+            ref_feats = det.extract_feat(img)
+        else:
+            ref_img = prev
+        outputs, state = det.predict(img, ref_img, state,
+                                     img_shape_withoutpad=img_shape_withoutpad,
+                                     ref_feats=ref_feats)
+        ref_feats = outputs.pop("fpn_feats")
+        prev = img
+        frames.append(outputs)
+    stacked = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
+    return stacked, (state, ref_feats, prev)
+
+
+def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:
+    """Seeded random weights that keep activations O(1) through the whole
+    chain and give the detection heads a usable population: weights
+    N(0, gain^2 / fan_in) (fan-in scaling as in the JAX parity tests, gain
+    1.4, 1.0 for the linear FPN convs and classifiers), small biases, BN/GN affine near identity, the last BN of each
+    residual branch x0.2 (so the residual sums do not double the variance
+    block after block), small DCN offsets, and a wide classifier so some
+    proposals clear the 0.6 panoptic score threshold."""
+    gen = torch.Generator().manual_seed(seed)
+    norms = {n for n, m in det.named_modules()
+             if isinstance(m, (FrozenBatchNorm, nn.GroupNorm))}
+    last_bn = "bn3" if isinstance(det.backbone.layer1[0], Bottleneck) else "bn2"
+    transposed = {n for n, m in det.named_modules()
+                  if isinstance(m, nn.ConvTranspose2d)}
+    # (pattern over the module name, gain); linear maps with no ReLU after
+    # them keep the variance at gain 1.0
+    gains = [(r"conv_offset$", 0.3), (r"^bbox_head\.fc_cls$", 4.0),
+             (r"fc_reg$|rpn_reg$", 0.4),
+             (r"^neck\.|rpn_cls$|conv_pred\.conv$", 1.0)]
+    with torch.no_grad():
+        for name, p in det.state_dict().items():
+            module, leaf = name.rsplit(".", 1)
+            z = torch.randn(p.shape, generator=gen)
+            if leaf == "running_mean":
+                val = 0.1 * z
+            elif leaf == "running_var":
+                val = 1.0 + 0.1 * z.abs()
+            elif module in norms:
+                val = 1.0 + 0.1 * z if leaf == "weight" else 0.1 * z
+                if leaf == "weight" and module.endswith("." + last_bn):
+                    val = val * 0.2
+            elif leaf == "bias":
+                val = z * (1.0 if module == "bbox_head.fc_cls" else 0.02)
+            else:
+                fan_in = p[0].numel()
+                if module in transposed:  # (in, out, kh, kw)
+                    fan_in = p.shape[0] * p[0, 0].numel()
+                gain = next((g for pat, g in gains if re.search(pat, module)),
+                            1.4)
+                val = z * (gain / np.sqrt(fan_in))
+            p.copy_(val.to(p.dtype))
+    return det

@@ -1,0 +1,55 @@
+"""Box coding and geometry (port of vps_tpu/ops/box.py): the legacy mmdet
+conventions (+1 widths, -/+0.5 decoded corners), same operation order as the
+JAX functions so float results agree."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def delta2bbox(rois, deltas, max_shape=None):
+    """rois (N, 4), deltas (N, 4K) -> boxes (N, 4K). The RPN's target means
+    and stds are 0 and 1, so deltas are used as they are."""
+    dx = deltas[..., 0::4]
+    dy = deltas[..., 1::4]
+    dw = deltas[..., 2::4]
+    dh = deltas[..., 3::4]
+    max_ratio = abs(math.log(16 / 1000))  # wh_ratio_clip
+    dw = dw.clamp(-max_ratio, max_ratio)
+    dh = dh.clamp(-max_ratio, max_ratio)
+    px = ((rois[..., 0] + rois[..., 2]) * 0.5)[..., None]
+    py = ((rois[..., 1] + rois[..., 3]) * 0.5)[..., None]
+    pw = (rois[..., 2] - rois[..., 0] + 1.0)[..., None]
+    ph = (rois[..., 3] - rois[..., 1] + 1.0)[..., None]
+    gw = pw * torch.exp(dw)
+    gh = ph * torch.exp(dh)
+    gx = px + pw * dx
+    gy = py + ph * dy
+    x1 = gx - gw * 0.5 + 0.5
+    y1 = gy - gh * 0.5 + 0.5
+    x2 = gx + gw * 0.5 - 0.5
+    y2 = gy + gh * 0.5 - 0.5
+    if max_shape is not None:
+        x1 = x1.clamp(0, max_shape[1] - 1)
+        y1 = y1.clamp(0, max_shape[0] - 1)
+        x2 = x2.clamp(0, max_shape[1] - 1)
+        y2 = y2.clamp(0, max_shape[0] - 1)
+    return torch.stack([x1, y1, x2, y2], dim=-1).reshape(deltas.shape)
+
+
+def bbox_area(boxes):
+    return (boxes[..., 2] - boxes[..., 0] + 1.0) * (boxes[..., 3] - boxes[..., 1] + 1.0)
+
+
+def bbox_overlaps(boxes1, boxes2):
+    """Pairwise IoU with the legacy +1 widths, (M, 4) x (N, 4) -> (M, N)."""
+    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
+    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
+    wh = (rb - lt + 1.0).clamp(min=0)
+    overlap = wh[..., 0] * wh[..., 1]
+    area1 = bbox_area(boxes1)[..., :, None]
+    area2 = bbox_area(boxes2)[..., None, :]
+    union = area1 + area2 - overlap
+    return overlap / union.clamp(min=1e-6)

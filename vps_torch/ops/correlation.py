@@ -1,0 +1,97 @@
+"""Correlation / cost volume (port of vps_tpu/ops/correlation.py).
+
+``correlation`` launches the hand-written Hopper kernel
+(``vps_torch/csrc/correlation.cu``) on CUDA tensors and takes the plain
+PyTorch version, ``correlation_reference``, only for CPU tensors. Layout is
+NHWC at the public function, as in the JAX package: f1, f2 (B, H, W, C) ->
+(B, H, W, D^2) with D = 2 * (md // stride2) + 1, displacements row-major with
+dy outer, f2 zero outside the map, f32 accumulation, output in the input
+dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from vps_torch.ops import cuda_build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+MAX_STEPS = 41  # largest displacement grid side the kernel is built for
+
+
+def _steps(max_displacement: int, stride2: int) -> int:
+    return 2 * (max_displacement // stride2) + 1
+
+
+def correlation_reference(f1, f2, max_displacement: int, stride2: int = 1):
+    """Plain shift-multiply-mean version: products and sums in f32, then cast
+    to the input dtype (the kernel's arithmetic, not _correlation_xla's
+    bf16-rounded products)."""
+    b, h, w, c = f1.shape
+    md = max_displacement
+    steps = _steps(md, stride2)
+    a = f1.float()
+    p = F.pad(f2.float(), (0, 0, md, md, md, md))
+    outs = []
+    for iy in range(steps):
+        oy = iy * stride2  # row of displacement -md + iy * stride2 in p
+        for ix in range(steps):
+            ox = ix * stride2
+            shifted = p[:, oy:oy + h, ox:ox + w, :]
+            outs.append((a * shifted).sum(-1) / c)
+    return torch.stack(outs, dim=-1).to(f1.dtype)
+
+
+def _lib():
+    lib = cuda_build.load("correlation.cu")
+    fn = lib.vps_correlation_forward
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def correlation(f1, f2, max_displacement: int, stride2: int = 1):
+    """Cost volume. CUDA tensors go through the kernel (or raise); CPU
+    tensors through ``correlation_reference``."""
+    if f1.shape != f2.shape or f1.dim() != 4:
+        raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
+                         f"{tuple(f2.shape)} must be equal (B, H, W, C)")
+    if f1.dtype != f2.dtype or f1.dtype not in _DTYPES:
+        raise TypeError(f"correlation: dtypes {f1.dtype}, {f2.dtype}; "
+                        "need both float32 or both bfloat16")
+    if f1.device != f2.device:
+        raise ValueError("correlation: f1 and f2 on different devices")
+    if max_displacement < 0 or stride2 < 1:
+        raise ValueError("correlation: need max_displacement >= 0, stride2 >= 1")
+    if f1.device.type == "cpu":
+        return correlation_reference(f1, f2, max_displacement, stride2)
+    if f1.device.type != "cuda":
+        raise ValueError(f"correlation: unsupported device {f1.device}")
+    if not (f1.is_contiguous() and f2.is_contiguous()):
+        raise ValueError("correlation: the kernel takes contiguous NHWC tensors")
+    b, h, w, c = f1.shape
+    steps = _steps(max_displacement, stride2)
+    if steps > MAX_STEPS or max_displacement > 96:
+        raise ValueError(f"correlation: {steps} displacement steps per axis "
+                         f"(md {max_displacement}) exceed the kernel's "
+                         f"{MAX_STEPS} / md 96")
+    if h > 65535 or b * steps > 65535:
+        raise ValueError("correlation: grid too large (H or B*steps > 65535)")
+    out = torch.empty((b, h, w, steps * steps), dtype=f1.dtype,
+                      device=f1.device)
+    lib = _lib()
+    with torch.cuda.device(f1.device):
+        stream = torch.cuda.current_stream(f1.device).cuda_stream
+        rc = lib.vps_correlation_forward(
+            f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c,
+            max_displacement, stride2, int(f1.dtype == torch.bfloat16), stream)
+    cuda_build.check(lib, rc, "correlation kernel launch")
+    correlation.launches += 1
+    return out
+
+
+correlation.launches = 0  # kernel launches (CUDA path only)
