@@ -3,21 +3,27 @@
     python3 chip_smoke.py
 
 Phases, each printing its own line of numbers:
-  1. build    -- nvcc builds every kernel of the main path from vps_torch/csrc
-                 (sm_90a); prints the build time and the card (nvidia-smi).
+  1. build    -- nvcc builds every kernel from vps_torch/csrc (sm_90a), one
+                 nvcc per source, all started together; prints the build
+                 times and the card (nvidia-smi).
   2. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the main path's shapes (and a ragged one), with the
+                 at the shapes its path gives it (and ragged ones), with the
                  tolerance stated; CUDA-event medians beside the bound.
   3. main     -- PanopticFuseTrack at the full R-50 `half-flow` preset with
                  seeded random weights, predict_video over seeded random
                  1024x2048 frames (the first a reset); asserts finite outputs
                  of the contract shapes and the kernel launch counts;
                  prints steady-state frames/s and peak device memory.
+     window   -- the same with `panoptic.dcn_window = 4`: the semantic head's
+                 12 deformable convs a frame run the windowed kernel.
   4. small    -- the tiny `exact` model on a 64x128 clip on the card against
                  the same model's plain CPU path: equal detections and keep
-                 sets, >= 0.999 semantic/panoptic agreement.
-Then a `kernels` JSON line, the nvidia-smi line and, last, the result line
-{"ok": true, "device": {...}}. Any failure raises: exit code != 0, no result.
+                 sets, >= 0.999 semantic/panoptic agreement; then the same
+                 with `dcn_window = 4`.
+Each path is driven with every launch count set to 0 just before it and read
+just after. Then a `kernels` JSON line, the nvidia-smi line and, last, the
+result line {"ok": true, "device": {...}}. Any failure raises: exit code
+!= 0, no result.
 TF32 is off for matmuls and convolutions: float32 work runs in full float32,
 as the JAX reference computes it.
 """
@@ -39,6 +45,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # f32 outside tensor cores
 H, W = 1024, 2048
 FRAMES = 6  # frame 0 (reset) + 5 steady-state frames
 SEED = 0
+SOURCES = ("correlation.cu", "deform_conv_windowed.cu")
+WINDOW = 4  # panoptic.dcn_window of the windowed path
+# the semantic head's deformable convs at 1024x2048, head_stride 4: a shared
+# tower of (Cin, Cout) convs over the 4 FPN levels, one launch per level
+DCN_LEVELS = [(H // 4 >> i, W // 4 >> i) for i in range(4)]
+DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
 
 
 def nvidia_smi() -> str:
@@ -79,19 +91,47 @@ def correlation_bound_ms(shape, md, s2, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def windowed_bounds_ms(b, h, w, cin, cout, dtype_name, k=9):
+    """Least times on the card for the windowed DCN at one level.
+
+    kernel: the 4-corner mix alone, Y (k * Cout values a pixel) and the f32
+    offsets read once, the f32 output written once; 8 f32 flops per corner,
+    tap and channel. wrapper: the whole function from x -- x, offsets and
+    weight read once, output written once; the tap products (2 * Cin * k *
+    Cout flops a pixel) at the dtype's peak plus the mix at the f32 peak.
+    Each is the larger of its bytes and operations times."""
+    esize = 2 if dtype_name == "bfloat16" else 4
+    px = b * h * w
+    mix_s = 8.0 * px * k * cout / PEAK_FLOPS["float32"]
+    out = {}
+    for name, nbytes, ops_s in (
+            ("kernel", px * (k * cout * esize + 2 * k * 4 + cout * 4), mix_s),
+            ("wrapper", px * (cin * esize + 2 * k * 4 + cout * 4)
+             + k * cin * cout * esize,
+             2.0 * px * cin * k * cout / PEAK_FLOPS[dtype_name] + mix_s)):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[name] = (max(t_bytes, ops_s) * 1e3,
+                     "bytes" if t_bytes >= ops_s else "operations")
+    return out
+
+
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from vps_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    cuda_build.build("correlation.cu")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:  # one nvcc per source
+        list(pool.map(cuda_build.build, SOURCES))
     smi = nvidia_smi()
-    print(f"build: nvcc sm_90a correlation.cu "
-          f"{cuda_build.build_seconds['correlation.cu']:.2f}s "
-          f"(phase {time.perf_counter() - t0:.2f}s); card: {smi}")
+    each = ", ".join(f"{src} {cuda_build.build_seconds[src]:.2f}s"
+                     for src in SOURCES)
+    print(f"build: nvcc sm_90a {each} (phase {time.perf_counter() - t0:.2f}s, "
+          f"in parallel); card: {smi}")
     return smi
 
 
-def phase_kernels():
+def phase_kernels_correlation():
     """Kernel vs correlation_reference at both call sites (bf16 as on the
     half-flow main path, and f32) and at two ragged shapes (the second with
     C = 30, which takes the kernel's one-channel-per-load path). Tolerance:
@@ -147,6 +187,100 @@ def phase_kernels():
                 library_ms=None, **per_frame)
 
 
+def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
+    """One windowed-DCN case on the card: kernel (through its wrapper)
+    against deform_conv2d_windowed_reference on the same inputs, then the
+    times. Tolerance, relative to the output's scale: f32 (TF32 off)
+    1e-4 * max|ref| + 1e-5 (summation order); bf16 2^-6 * max|ref| (the
+    kernel rounds Y_k = X W_k to bf16, the plain version rounds the mixed
+    X samples before its product, as the JAX pair does)."""
+    import torch
+    from vps_torch.ops.deform_conv import (
+        deform_conv2d_windowed, deform_conv2d_windowed_reference,
+        windowed_mix, windowed_tap_products)
+
+    b, h, w, cin = shape
+    dtype = getattr(torch, dt)
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    off = torch.randn((b, h, w, 18), generator=gen, device="cuda") * scale
+    if rounded:  # integer offsets: zero-weight ceil corners past the edge
+        off = off.round()
+    weight = (torch.randn((cout, cin, 3, 3), generator=gen, device="cuda")
+              / float(np.sqrt(9 * cin))).to(dtype)
+    args = (x, off, weight, 1, window)
+    got = deform_conv2d_windowed(*args)
+    want = deform_conv2d_windowed_reference(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ref_max = float(want.abs().max())
+    tol = 2.0 ** -6 * ref_max if dt == "bfloat16" else 1e-4 * ref_max + 1e-5
+    ms = cuda_ms(lambda: deform_conv2d_windowed(*args))
+    y = windowed_tap_products(x, weight)
+    mm_ms = cuda_ms(lambda: windowed_tap_products(x, weight))
+    kernel_ms = cuda_ms(lambda: windowed_mix(y, off, (3, 3), 1, window))
+    del y
+    plain = cuda_ms(lambda: deform_conv2d_windowed_reference(*args), iters=10)
+    bounds = windowed_bounds_ms(b, h, w, cin, cout, dt)
+    print(f"kernel deform_conv_windowed {tuple(shape)}->{cout} R={window} "
+          f"offsets N(0,{scale:g}){' rounded' if rounded else ''} {dt}: "
+          f"max_abs_err={err:.3e} (tol {tol:.3e}, max|ref| {ref_max:.3e}) "
+          f"{'ok' if err <= tol else 'FAIL'} ms={ms:.4f} "
+          f"(kernel {kernel_ms:.4f} + Y matmul {mm_ms:.4f}) plain_ms={plain:.4f} "
+          f"bound_ms={bounds['wrapper'][0]:.4f} ({bounds['wrapper'][1]}) "
+          f"kernel_bound_ms={bounds['kernel'][0]:.4f} ({bounds['kernel'][1]})")
+    if err > tol:
+        raise AssertionError(f"windowed DCN kernel disagrees at {shape}->{cout} "
+                             f"R={window} {dt}")
+    return dict(err=err, ms=ms, kernel_ms=kernel_ms, mm_ms=mm_ms, plain_ms=plain,
+                bound=bounds["wrapper"], kernel_bound=bounds["kernel"])
+
+
+def phase_kernels_windowed():
+    """Windowed DCN vs its plain version: the 12 launches of a half-flow
+    frame (4 levels x 3 convs, bf16, offsets N(0, 1.5), R = 4), level 0 with
+    the offsets x8 (mostly clamped to +-R), and ragged shapes in f32 and
+    bf16 at R = 4 and 2 (Cout 40 and 6: 16-byte and scalar paths, integer
+    offsets). ms, plain_ms and bound_ms of the JSON line are per frame:
+    sums over the 12 launches of the wrapper (Y matmul + kernel)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, kernel_ms=0.0,
+                 mm_ms=0.0, kernel_bound_ms=0.0)
+    bound_by = []
+    max_err = 0.0
+    for cin, cout in DCN_CONVS:
+        for h, w in DCN_LEVELS:
+            r = _windowed_case(gen, (1, h, w, cin), cout, WINDOW, 1.5, "bfloat16")
+            max_err = max(max_err, r["err"])
+            for key in ("ms", "plain_ms", "kernel_ms", "mm_ms"):
+                frame[key] += r[key]
+            frame["bound_ms"] += r["bound"][0]
+            frame["kernel_bound_ms"] += r["kernel_bound"][0]
+            bound_by.append(r["bound"])
+    h0, w0 = DCN_LEVELS[0]
+    extra = [((1, h0, w0, cin), cout, WINDOW, 12.0, "bfloat16", False)
+             for cin, cout in DCN_CONVS[:2]]
+    extra += [((2, 37, 53, 48), 40, window, 1.5, dt, False)
+              for window in (4, 2) for dt in ("float32", "bfloat16")]
+    extra += [((2, 37, 53, 48), 40, 4, 3.0, dt, True)
+              for dt in ("float32", "bfloat16")]
+    extra += [((1, 9, 11, 16), 6, 4, 3.0, "float32", True)]
+    for case in extra:
+        max_err = max(max_err, _windowed_case(gen, *case)["err"])
+    print(f"kernel deform_conv_windowed per frame (12 launches, bf16, R={WINDOW}): "
+          f"ms={frame['ms']:.4f} (kernel {frame['kernel_ms']:.4f} + Y matmul "
+          f"{frame['mm_ms']:.4f}) plain_ms={frame['plain_ms']:.4f} "
+          f"bound_ms={frame['bound_ms']:.4f} kernel_bound_ms="
+          f"{frame['kernel_bound_ms']:.4f}")
+    return dict(name="deform_conv_windowed", route="cuda",
+                source="vps_torch/csrc/deform_conv_windowed.cu",
+                replaces="vps_tpu/ops/deform_conv.py:447",
+                max_abs_err=max_err, bound_by=max(bound_by)[1],
+                library_ms=None, ms=frame["ms"], plain_ms=frame["plain_ms"],
+                bound_ms=frame["bound_ms"])
+
+
 def _check_outputs(out, frames, cap_det, h, w):
     import torch
 
@@ -179,15 +313,18 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def phase_main(smi, device="cuda", h=H, w=W):
+def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
+    """The R-50 half-flow path (with ``dcn_window`` set: the windowed
+    semantic head). Returns the launch counts of the run."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import (
         PanopticFuseTrack, empty_track_state, predict_video, random_init_)
-    from vps_torch.ops import correlation
+    from vps_torch.ops import correlation, deform_conv2d_windowed
 
     cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), "half-flow")
     cfg.pop("type")
+    cfg["panoptic"]["dcn_window"] = dcn_window
     tcfg = zoo.fusetrack_test_cfg()
     t0 = time.perf_counter()
     det = random_init_(PanopticFuseTrack(test_cfg=tcfg, device=device, **cfg),
@@ -204,6 +341,7 @@ def phase_main(smi, device="cuda", h=H, w=W):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     correlation.launches = 0
+    deform_conv2d_windowed.launches = 0
     t0 = time.perf_counter()
     first, carry = predict_video(det, frames[:1], [True], state, frames[0])
     _sync(device)
@@ -212,36 +350,46 @@ def phase_main(smi, device="cuda", h=H, w=W):
                                 carry[0], carry[2], prev_feats=carry[1])
     _sync(device)
     t2 = time.perf_counter()
-    launches = correlation.launches
+    launches = dict(correlation=correlation.launches,
+                    deform_conv_windowed=deform_conv2d_windowed.launches)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
 
     out = {k: torch.cat([first[k], rest[k]]) for k in first}
     _check_outputs(out, FRAMES, cap_det, h, w)
-    if launches != 2 * FRAMES:
-        raise AssertionError(f"correlation launches {launches} != 2 per frame "
-                             f"x {FRAMES} frames")
+    # 2 cost volumes a frame; 3 convs x 4 levels a frame when windowed
+    want = dict(correlation=2 * FRAMES,
+                deform_conv_windowed=12 * FRAMES if dcn_window else 0)
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} != {want} over "
+                             f"{FRAMES} frames")
     ndet = out["det_valid"].sum(1).tolist()
     nkeep = out["num_keep"].tolist()
     fps = (FRAMES - 1) / (t2 - t1)
-    print(f"main: PanopticFuseTrack R-50 half-flow {h}x{w} x{FRAMES} frames "
+    name = "main" if dcn_window is None else "window"
+    print(f"{name}: PanopticFuseTrack R-50 half-flow dcn_window={dcn_window} "
+          f"{h}x{w} x{FRAMES} frames "
           f"(frame 0 reset), init {init_s:.1f}s, first frame {t1 - t0:.3f}s, "
           f"steady {fps:.3f} frames/s over {FRAMES - 1} frames, "
-          f"peak mem {peak / 2**30:.2f} GiB, correlation launches {launches} "
-          f"(2/frame), dets/frame {ndet}, kept/frame {nkeep}, "
+          f"peak mem {peak / 2**30:.2f} GiB, launches {launches} "
+          f"over {FRAMES} frames, dets/frame {ndet}, kept/frame {nkeep}, "
           f"TF32 off; card: {smi}")
     return launches
 
 
-def phase_small(device="cuda"):
+def phase_small(device="cuda", dcn_window=None):
     """Port on the card vs the port's plain CPU path, same weights, tiny
-    exact-preset model (R-18, TinyFlow) on a 3-frame 64x128 clip."""
+    exact-preset model (R-18, TinyFlow) on a 3-frame 64x128 clip (with
+    ``dcn_window``: the windowed kernel on the card, its plain version on
+    the CPU)."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import (
         PanopticFuseTrack, empty_track_state, predict_video, random_init_)
+    from vps_torch.ops import deform_conv2d_windowed
 
     cfg = zoo.exact_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()))
     cfg.pop("type")
+    cfg["panoptic"]["dcn_window"] = dcn_window
     tcfg = zoo.fusetrack_test_cfg()
     tcfg["rpn"].update(nms_pre=128, max_num=64)
     tcfg["panoptic"].update(score_thresh=0.2, max_det=12)
@@ -259,10 +407,15 @@ def phase_small(device="cuda"):
     resets = [True, False, False]
     want, _ = predict_video(cpu, clip, resets, empty_track_state(64, device="cpu"),
                             clip[0])
+    deform_conv2d_windowed.launches = 0
     got, _ = predict_video(gpu, clip.to(device), resets,
                            empty_track_state(64, device=device),
                            clip[0].to(device))
     got = {k: v.cpu() for k, v in got.items()}
+    if dcn_window and torch.device(device).type == "cuda" and \
+            deform_conv2d_windowed.launches != 12 * len(resets):
+        raise AssertionError(f"small clip: {deform_conv2d_windowed.launches} "
+                             f"windowed launches, want 12 a frame")
     for k in ("det_valid", "det_labels", "num_keep", "panoptic_valid",
               "panoptic_cls_inds", "panoptic_det_obj_ids"):
         if not torch.equal(got[k].long(), want[k].long()):
@@ -272,7 +425,8 @@ def phase_small(device="cuda"):
     sseg = float((got["fcn_outputs"] == want["fcn_outputs"]).float().mean())
     pan = float((got["panoptic_outputs"] == want["panoptic_outputs"]).float().mean())
     ndet = int(want["det_valid"].sum())
-    print(f"small: tiny exact 64x128 x3 card vs cpu: dets {ndet} equal, "
+    print(f"small: tiny exact dcn_window={dcn_window} 64x128 x3 card vs cpu: "
+          f"dets {ndet} equal, "
           f"box max err {box_err:.2e} (tol 2e-2), semantic agree {sseg:.5f}, "
           f"panoptic agree {pan:.5f} (tol 0.999)")
     if ndet == 0 or box_err > 2e-2 or sseg < 0.999 or pan < 0.999:
@@ -296,11 +450,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smi = phase_build()
-    kernel = phase_kernels()
-    kernel["launches"] = phase_main(smi)
+    kernels = [phase_kernels_correlation(), phase_kernels_windowed()]
+    main_launches = phase_main(smi)
+    window_launches = phase_main(smi, dcn_window=WINDOW)
+    kernels[0]["launches"] = main_launches["correlation"]
+    kernels[1]["launches"] = window_launches["deform_conv_windowed"]
     phase_small()
+    phase_small(dcn_window=WINDOW)
     print(f"total {time.perf_counter() - t0:.1f}s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -107,8 +107,12 @@ def clip():
 @pytest.mark.parametrize("frame", [0, 1])
 def test_fusetrack_clip_matches_jax(clip, frame):
     ours_all, port = clip
-    ours = ours_all[frame]
-    p = {k: v[frame] for k, v in port.items()}
+    assert_frame_matches(ours_all[frame], {k: v[frame] for k, v in port.items()})
+
+
+def assert_frame_matches(ours, p):
+    """One frame of the port (``p``) against JAX's ``predict`` (``ours``):
+    identical detections, keep sets and track ids, >= 0.999 agreement."""
     nvalid = int(ours["det_valid"].sum())
     assert nvalid >= 3, f"too few detections ({nvalid})"
     np.testing.assert_array_equal(p["det_valid"], ours["det_valid"])

@@ -191,13 +191,21 @@ def test_bfp_tcea():
         _close(_nhwc(g), w)
 
 
-@pytest.mark.parametrize("head_stride", [4, 8])
-def test_upsnet_fpn(head_stride):
+@pytest.mark.parametrize("head_stride,dcn_window", [
+    pytest.param(4, None, id="4"), pytest.param(8, None, id="8"),
+    pytest.param(4, 4, id="4-window4")])
+def test_upsnet_fpn(head_stride, dcn_window):
+    """``dcn_window`` runs every level through the clamped DCN, at narrow
+    widths (64 -> 32 channels; GroupNorm(32) still has two and one
+    channels a group)."""
+    cin, cout = (256, 128) if dcn_window is None else (64, 32)
     rng = np.random.RandomState(4)
-    xs = [rng.randn(1, 16 >> i, 32 >> i, 256).astype(np.float32)
+    xs = [rng.randn(1, 16 >> i, 32 >> i, cin).astype(np.float32)
           for i in range(4)]
-    jm = JUPSNetFPN(compute_dtype=None, head_stride=head_stride)
-    pm = UPSNetFPN(compute_dtype=None, head_stride=head_stride, device="cpu")
+    kw = dict(in_channels=cin, out_channels=cout, compute_dtype=None,
+              head_stride=head_stride, dcn_window=dcn_window)
+    jm = JUPSNetFPN(**kw)
+    pm = UPSNetFPN(device="cpu", **kw)
     v = _bridge(jm, "panopticFPN", pm, [jnp.asarray(x) for x in xs])
     want_out, want_score = jm.apply(v, [jnp.asarray(x) for x in xs])
     with torch.no_grad():

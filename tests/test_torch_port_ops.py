@@ -1,7 +1,7 @@
 """Port parity, ops: every vps_torch op against its vps_tpu counterpart on
-the same seeded numpy inputs, on the CPU (where the correlation wrapper takes
-its plain version). The last test holds the CUDA kernel against the plain
-version and needs a card.
+the same seeded numpy inputs, on the CPU (where the correlation and windowed
+DCN wrappers take their plain versions). The `cuda`-marked tests hold the
+CUDA kernels against their plain versions and need a card.
 
 Tolerances: f32 paths agree to summation order (atol 1e-5 on O(1) values);
 index-valued results (NMS keep sets, sample positions) must be identical.
@@ -21,7 +21,9 @@ from vps_tpu.ops import (
     resample2d as jax_resample2d,
 )
 from vps_tpu.ops.deform_conv import (
+    deform_conv2d as jax_deform_conv2d,
     deform_conv2d_multilevel as jax_deform_conv2d_multilevel,
+    deform_conv2d_windowed as jax_deform_conv2d_windowed,
 )
 
 from vps_torch import ops
@@ -114,6 +116,114 @@ def test_deform_conv2d_multilevel(sampling):
         np.testing.assert_allclose(g.numpy(), np.asarray(wnt), rtol=0, atol=1e-5)
 
 
+def _hwio(w_torch):
+    return np.ascontiguousarray(w_torch.transpose(2, 3, 1, 0))
+
+
+@pytest.mark.parametrize("case", ["bilinear", "nearest", "mask_bias",
+                                  "stride2_dilation2"])
+def test_deform_conv2d(case):
+    """Single-level DCN against JAX deform_conv2d, f32 atol 1e-5 (sum
+    order). Offsets reach past the map's edge."""
+    rng = np.random.RandomState(11)
+    stride, dilation = (2, 2) if case == "stride2_dilation2" else (1, 1)
+    b, h, w, cin, cout = 2, 9, 11, 6, 5
+    ho = (h + 2 - dilation * 2 - 1) // stride + 1
+    wo = (w + 2 - dilation * 2 - 1) // stride + 1
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    off = rng.uniform(-3, 3, (b, ho, wo, 18)).astype(np.float32)
+    weight = (rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin)).astype(np.float32)
+    mask = bias = None
+    if case == "mask_bias":
+        mask = rng.uniform(0, 1, (b, ho, wo, 9)).astype(np.float32)
+        bias = rng.randn(cout).astype(np.float32)
+    sampling = "nearest" if case == "nearest" else "bilinear"
+    opt = lambda a, f: None if a is None else f(a)  # noqa: E731
+    want = jax_deform_conv2d(
+        jnp.asarray(x), jnp.asarray(off), jnp.asarray(_hwio(weight)),
+        bias=opt(bias, jnp.asarray), stride=stride, padding=1,
+        dilation=dilation, mask=opt(mask, jnp.asarray), sampling=sampling)
+    got = ops.deform_conv2d(T(x), T(off), T(weight), bias=opt(bias, T),
+                            stride=stride, padding=1, dilation=dilation,
+                            mask=opt(mask, T), sampling=sampling)
+    assert got.dtype == torch.float32 and got.shape == (b, ho, wo, cout)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def _windowed_inputs(rng, shape, cout, scale):
+    b, h, w, cin = shape
+    x = rng.randn(b, h, w, cin).astype(np.float32)
+    off = (rng.randn(b, h, w, 18) * scale).astype(np.float32)
+    weight = (rng.randn(cout, cin, 3, 3) / np.sqrt(9 * cin)).astype(np.float32)
+    return x, off, weight
+
+
+@pytest.mark.parametrize("scale", [1.5, 12.0])
+def test_deform_conv2d_windowed_f32(scale):
+    """Against JAX deform_conv2d_windowed (its XLA path on the CPU): offsets
+    N(0, 1.5) mostly inside the window, and the same x8, mostly clamped to
+    +-4. f32 atol 1e-5 (sum order)."""
+    x, off, weight = _windowed_inputs(np.random.RandomState(12), (2, 10, 13, 8),
+                                      6, scale)
+    want = jax_deform_conv2d_windowed(jnp.asarray(x), jnp.asarray(off),
+                                      jnp.asarray(_hwio(weight)), 1, 4)
+    got = ops.deform_conv2d_windowed(T(x), T(off), T(weight), 1, 4)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
+
+
+def test_deform_conv2d_windowed_bf16():
+    """bf16 x and weight (the half-flow semantic head). Both sides round the
+    mixed samples to bf16 before an f32-accumulated product and return f32,
+    so they differ by summation order and the odd bf16 rounding flip:
+    max |diff| <= 2^-8 * max |ref|."""
+    x, off, weight = _windowed_inputs(np.random.RandomState(13), (1, 12, 16, 32),
+                                      16, 1.5)
+    want = np.asarray(jax_deform_conv2d_windowed(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(off),
+        jnp.asarray(_hwio(weight), jnp.bfloat16), 1, 4).astype(jnp.float32))
+    got = ops.deform_conv2d_windowed(T(x).bfloat16(), T(off),
+                                     T(weight).bfloat16(), 1, 4)
+    assert got.dtype == torch.float32
+    assert np.abs(got.numpy() - want).max() <= 2.0 ** -8 * np.abs(want).max()
+
+
+def test_deform_conv2d_windowed_grads():
+    """Gradients of x, offset and weight against jax.grad (whose backward
+    is the VJP of _windowed_ref), offsets partly clamped, rtol/atol 1e-4."""
+    import jax
+
+    rng = np.random.RandomState(14)
+    x, off, weight = _windowed_inputs(rng, (1, 6, 6, 2), 3, 2.5)
+    g = rng.randn(1, 6, 6, 3).astype(np.float32)
+    jgrads = jax.jit(jax.grad(
+        lambda a, o, w_: jnp.sum(jax_deform_conv2d_windowed(a, o, w_, 1, 2)
+                                 * jnp.asarray(g)), argnums=(0, 1, 2)))(
+        jnp.asarray(x), jnp.asarray(off), jnp.asarray(_hwio(weight)))
+    xs, offs, ws = (T(a.copy()).requires_grad_() for a in (x, off, weight))
+    (ops.deform_conv2d_windowed(xs, offs, ws, 1, 2) * T(g)).sum().backward()
+    for got, want in ((xs.grad, jgrads[0]), (offs.grad, jgrads[1]),
+                      (ws.grad.permute(2, 3, 1, 0), jgrads[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_deform_conv2d_windowed_rejects_bad_input():
+    x, off, w = torch.zeros(1, 4, 5, 8), torch.zeros(1, 4, 5, 18), torch.zeros(6, 8, 3, 3)
+    with pytest.raises(TypeError):  # x and weight dtypes differ
+        ops.deform_conv2d_windowed(x.bfloat16(), off, w)
+    with pytest.raises(TypeError):  # half precision
+        ops.deform_conv2d_windowed(x.half(), off, w.half())
+    with pytest.raises(TypeError):  # offsets not f32
+        ops.deform_conv2d_windowed(x, off.double(), w)
+    with pytest.raises(ValueError):  # rank
+        ops.deform_conv2d_windowed(x[0], off[0], w)
+    with pytest.raises(ValueError):  # offsets of another map
+        ops.deform_conv2d_windowed(x, torch.zeros(1, 4, 4, 18), w)
+    with pytest.raises(ValueError):  # devices differ
+        ops.deform_conv2d_windowed(x, off.to("meta"), w)
+
+
 @pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
 def test_multilevel_roi_align(sampling):
     rng = np.random.RandomState(5)
@@ -186,3 +296,33 @@ def test_correlation_kernel_matches_plain_on_card():
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                        atol=atol)
+
+
+@pytest.mark.cuda
+def test_deform_conv2d_windowed_kernel_matches_plain_on_card():
+    """The CUDA kernel against deform_conv2d_windowed_reference on the card:
+    f32 (TF32 off) within 1e-4 * max|ref| + 1e-5 (sum order); bf16 within
+    2^-6 * max|ref| (the kernel rounds Y_k = X W_k to bf16, the plain
+    version rounds the mixed X samples). Ragged shapes, Cout that takes the
+    scalar path, offsets in and past the window, integer offsets."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for (b, h, w, cin, cout), window, scale in [
+            ((1, 32, 64, 64, 64), 4, 1.5), ((1, 32, 64, 64, 32), 4, 12.0),
+            ((2, 37, 53, 48, 40), 4, 1.5), ((2, 37, 53, 48, 40), 2, 1.5),
+            ((1, 9, 11, 16, 6), 4, 3.0)]:
+        x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
+        off = torch.randn(b, h, w, 18, generator=gen, device="cuda") * scale
+        weight = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / 20
+        for offset in (off, off.round()):
+            for dt, rel, atol in ((torch.float32, 1e-4, 1e-5),
+                                  (torch.bfloat16, 2.0 ** -6, 0.0)):
+                got = ops.deform_conv2d_windowed(x.to(dt), offset,
+                                                 weight.to(dt), 1, window)
+                want = ops.deform_conv2d_windowed_reference(
+                    x.to(dt), offset, weight.to(dt), 1, window)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                assert err <= rel * float(want.abs().max()) + atol, (dt, err)

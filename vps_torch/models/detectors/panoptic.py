@@ -122,13 +122,11 @@ class PanopticFuseTrack(nn.Module):
             panoptic.get("num_things_classes", 8),
             panoptic.get("num_classes", 19),
             dcn_sampling=panoptic.get("dcn_sampling", "bilinear"),
+            dcn_window=panoptic.get("dcn_window"),
             head_stride=panoptic.get("head_stride", 4),
             compute_dtype=compute_dtype(panoptic.get("compute_dtype"),
                                         torch.bfloat16),
             device=dev)
-        if panoptic.get("dcn_window") is not None:
-            raise ValueError("panoptic.dcn_window (windowed DCN kernel) is "
-                             "not ported yet")
         self.track_head = TrackHead(
             track_head.get("num_fcs", 2), track_head.get("in_channels", 256),
             track_head.get("roi_feat_size", 7),

@@ -3,7 +3,11 @@ shared tower of 3 x (DeformConvWithOffset -> GroupNorm(32) -> ReLU) over 4
 FPN levels, upsampled to 1/4 scale, concatenated, 1x1 conv to class logits.
 Parameter names follow the reference (``deform_convs.0.{0,3,6}.conv_offset``,
 ``deform_convs.0.{0,3,6}.conv.weight``, GroupNorm at ``deform_convs.0.{1,4,7}``,
-``conv_pred.conv``). Levels are NCHW; the deformable op runs NHWC."""
+``conv_pred.conv``). Levels are NCHW; the deformable op runs NHWC.
+
+``dcn_window=R`` clamps every offset to [-R, R] and runs each level through
+``deform_conv2d_windowed`` (the hand-written Hopper kernel on the card), as
+the JAX head does; it takes precedence over ``dcn_sampling``."""
 
 from __future__ import annotations
 
@@ -14,7 +18,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vps_torch.models.layers import Conv, ConvModule, avg_pool, resize_bilinear
-from vps_torch.ops import deform_conv2d_multilevel
+from vps_torch.ops import deform_conv2d_multilevel, deform_conv2d_windowed
 
 
 class _DeformWeight(nn.Module):
@@ -33,12 +37,14 @@ class DeformConvWithOffset(nn.Module):
 
     def __init__(self, in_channels, out_channels, kernel_size=3, padding=1,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
-                 dcn_sampling: str = "bilinear", device=None):
+                 dcn_sampling: str = "bilinear",
+                 dcn_window: Optional[int] = None, device=None):
         super().__init__()
         k = kernel_size
         self.padding = padding
         self.compute_dtype = compute_dtype
         self.dcn_sampling = dcn_sampling
+        self.dcn_window = dcn_window
         self.conv_offset = Conv(in_channels, k * k * 2, 3, 1, 1, device=device)
         self.conv = _DeformWeight(in_channels, out_channels, k, device=device)
 
@@ -46,9 +52,15 @@ class DeformConvWithOffset(nn.Module):
         dt = self.compute_dtype or torch.float32
         offsets = [self.conv_offset(x).permute(0, 2, 3, 1) for x in xs]
         xcs = [x.to(dt).permute(0, 2, 3, 1).contiguous() for x in xs]
-        outs = deform_conv2d_multilevel(xcs, offsets, self.conv.weight,
-                                        padding=self.padding,
-                                        sampling=self.dcn_sampling)
+        if self.dcn_window is not None:
+            weight = self.conv.weight.to(dt)
+            outs = [deform_conv2d_windowed(xc, off, weight, self.padding,
+                                           int(self.dcn_window))
+                    for xc, off in zip(xcs, offsets)]
+        else:
+            outs = deform_conv2d_multilevel(xcs, offsets, self.conv.weight,
+                                            padding=self.padding,
+                                            sampling=self.dcn_sampling)
         return [o.permute(0, 3, 1, 2) for o in outs]
 
 
@@ -56,7 +68,7 @@ class UPSNetFPN(nn.Module):
     def __init__(self, in_channels: int = 256, out_channels: int = 128,
                  num_levels: int = 4, num_things_classes: int = 8,
                  num_classes: int = 19, dcn_sampling: str = "bilinear",
-                 head_stride: int = 4,
+                 dcn_window: Optional[int] = None, head_stride: int = 4,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                  device=None):
         super().__init__()
@@ -67,7 +79,7 @@ class UPSNetFPN(nn.Module):
         self.num_things_classes = num_things_classes
         self.head_stride = head_stride
         kw = dict(compute_dtype=compute_dtype, dcn_sampling=dcn_sampling,
-                  device=device)
+                  dcn_window=dcn_window, device=device)
         self.deform_convs = nn.ModuleList([nn.Sequential(
             DeformConvWithOffset(in_channels, in_channels, **kw),
             nn.GroupNorm(32, in_channels, eps=1e-5, device=device),

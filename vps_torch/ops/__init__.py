@@ -1,10 +1,16 @@
-"""Ops of the port. ``correlation`` is a hand-written CUDA kernel
-(``csrc/correlation.cu``) with its plain PyTorch version beside it; the
-others are plain PyTorch tensor code, as their JAX counterparts are XLA
-compositions."""
+"""Ops of the port. ``correlation`` and ``deform_conv2d_windowed`` are
+hand-written CUDA kernels (``csrc/correlation.cu``,
+``csrc/deform_conv_windowed.cu``) with their plain PyTorch versions beside
+them; the others are plain PyTorch tensor code, as their JAX counterparts
+are XLA compositions."""
 
 from vps_torch.ops.correlation import correlation, correlation_reference
-from vps_torch.ops.deform_conv import deform_conv2d_multilevel
+from vps_torch.ops.deform_conv import (
+    deform_conv2d,
+    deform_conv2d_multilevel,
+    deform_conv2d_windowed,
+    deform_conv2d_windowed_reference,
+)
 from vps_torch.ops.nms import nms
 from vps_torch.ops.roi_align import multilevel_roi_align
 from vps_torch.ops.warp import channel_norm, flow_warp, resample2d
@@ -13,7 +19,10 @@ __all__ = [
     "channel_norm",
     "correlation",
     "correlation_reference",
+    "deform_conv2d",
     "deform_conv2d_multilevel",
+    "deform_conv2d_windowed",
+    "deform_conv2d_windowed_reference",
     "flow_warp",
     "multilevel_roi_align",
     "nms",

@@ -1,9 +1,11 @@
 """Where a steady-state FuseTrack frame spends its time on the card.
 
-    python -m vps_torch.profile [--frames 3]
+    python -m vps_torch.profile [--frames 3] [--dcn-window R]
 
 Builds PanopticFuseTrack at the R-50 `half-flow` preset with seeded random
-weights (as chip_smoke.py does), runs two warm-up frames, then profiles
+weights (as chip_smoke.py does; ``--dcn-window R`` sets
+``panoptic.dcn_window``, the windowed semantic head), runs two warm-up
+frames, then profiles
 ``--frames`` steady-state frames with torch.profiler and prints: the frame
 time on the host clock without and with the profiler, the device-busy share
 of the profiled window (summed kernel time / wall time), device time per
@@ -43,6 +45,9 @@ def _kernel_us(evt) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--dcn-window", type=int, default=None,
+                    help="clamp the semantic head's DCN offsets to +-R and "
+                         "run its windowed kernel (default: exact DCN)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("vps_torch.profile needs an NVIDIA GPU")
@@ -52,6 +57,7 @@ def main(argv=None) -> None:
 
     cfg = zoo.fusetrack_model_cfg()
     cfg.pop("type")
+    cfg["panoptic"]["dcn_window"] = args.dcn_window
     det = random_init_(PanopticFuseTrack(test_cfg=zoo.fusetrack_test_cfg(),
                                          device="cuda", **cfg), seed=0)
     rng = np.random.RandomState(0)
@@ -82,9 +88,10 @@ def main(argv=None) -> None:
             kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy = sum(kernels.values()) / (wall_s * 1e6)
     per = 1e3 * args.frames  # us -> ms per frame
-    print(f"frame: {plain_s * 1e3:.1f} ms without the profiler, "
-          f"{wall_s / args.frames * 1e3:.1f} ms with it; device busy "
-          f"{busy:.3f} of the profiled window ({args.frames} frames, {h}x{w})")
+    print(f"frame (dcn_window={args.dcn_window}): {plain_s * 1e3:.1f} ms "
+          f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
+          f"device busy {busy:.3f} of the profiled window ({args.frames} "
+          f"frames, {h}x{w})")
     for name in STAGES:
         ranges = [e for e in events if e.name == name
                   and e.device_type == torch.autograd.DeviceType.CPU]
