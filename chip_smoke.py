@@ -91,28 +91,25 @@ def correlation_bound_ms(shape, md, s2, dtype_name):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def windowed_bounds_ms(b, h, w, cin, cout, dtype_name, k=9):
-    """Least times on the card for the windowed DCN at one level.
-
-    kernel: the 4-corner mix alone, Y (k * Cout values a pixel) and the f32
-    offsets read once, the f32 output written once; 8 f32 flops per corner,
-    tap and channel. wrapper: the whole function from x -- x, offsets and
-    weight read once, output written once; the tap products (2 * Cin * k *
-    Cout flops a pixel) at the dtype's peak plus the mix at the f32 peak.
-    Each is the larger of its bytes and operations times."""
+def windowed_bound_ms(b, h, w, cin, cout, dtype_name, k=9):
+    """Least time on the card for the windowed DCN at one level, the whole
+    function from x: the largest of three times, each on its own unit of
+    the card, as they can overlap. Bytes: x, the f32 offsets and the weight
+    read once, the f32 output written once, over the HBM rate. Products:
+    2 * Cin * k * Cout flops a pixel at the dtype's peak. Bilinear mix: 4
+    corners x a multiply and an add = 8 f32 flops per tap and channel, over
+    min(Cin, Cout) channels (mixing the samples, Cin, or the tap products,
+    Cout, gives the same function), at the f32 peak."""
     esize = 2 if dtype_name == "bfloat16" else 4
     px = b * h * w
-    mix_s = 8.0 * px * k * cout / PEAK_FLOPS["float32"]
-    out = {}
-    for name, nbytes, ops_s in (
-            ("kernel", px * (k * cout * esize + 2 * k * 4 + cout * 4), mix_s),
-            ("wrapper", px * (cin * esize + 2 * k * 4 + cout * 4)
-             + k * cin * cout * esize,
-             2.0 * px * cin * k * cout / PEAK_FLOPS[dtype_name] + mix_s)):
-        t_bytes = nbytes / HBM_BYTES_PER_S
-        out[name] = (max(t_bytes, ops_s) * 1e3,
-                     "bytes" if t_bytes >= ops_s else "operations")
-    return out
+    times = {
+        "bytes": (px * (cin * esize + 2 * k * 4 + cout * 4)
+                  + k * cin * cout * esize) / HBM_BYTES_PER_S,
+        "operations": max(2.0 * px * cin * k * cout / PEAK_FLOPS[dtype_name],
+                          8.0 * px * k * min(cin, cout) / PEAK_FLOPS["float32"]),
+    }
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
 
 
 def phase_build():
@@ -133,11 +130,13 @@ def phase_build():
 
 def phase_kernels_correlation():
     """Kernel vs correlation_reference at both call sites (bf16 as on the
-    half-flow main path, and f32) and at two ragged shapes (the second with
-    C = 30, which takes the kernel's one-channel-per-load path). Tolerance:
-    f32 atol 1e-5 + rtol 1e-5 (summation order); bf16 one output ulp
-    (rtol 2^-7) + atol 1e-6: both round an f32 sum, taken in another order,
-    to bf16, which can land one ulp apart."""
+    half-flow main path: the tensor-core kernel; and f32: the SIMT kernel),
+    at ragged shapes (C = 30 and 300, staged element by element; C = 512;
+    stride2 5 and 6), and at FlowNetC's geometry with W = 100, not a
+    multiple of the 64-pixel block. Tolerance: f32 atol 1e-5 + rtol 1e-5
+    (summation order); bf16 one output ulp (rtol 2^-7) + atol 1e-6: products
+    of bf16 values are exact in f32, so both round an f32 sum, taken in
+    another order, to bf16, which can land one ulp apart."""
     import torch
     from vps_torch.ops import correlation, correlation_reference
 
@@ -149,8 +148,16 @@ def phase_kernels_correlation():
     cases = [(name, shape, md, s2, dt) for name, (shape, md, s2) in sites.items()
              for dt in ("bfloat16", "float32")]
     cases += [("ragged", (2, 37, 53, 96), 4, 1, dt) for dt in ("bfloat16", "float32")]
-    # C = 30: the one-channel-per-load staging path and a partial chunk
+    # C = 30: element-wise staging and a partial channel chunk
     cases += [("ragged", (2, 37, 53, 30), 6, 2, dt) for dt in ("bfloat16", "float32")]
+    cases += [("ragged-flownetc", (1, H // 16, 100, 256), 20, 2, dt)
+              for dt in ("bfloat16", "float32")]
+    # C > 256 (f1 staged with every unit; C = 300 element by element) and
+    # stride2 > 4 (residue groups)
+    cases += [("ragged", shape, md, s2, dt)
+              for shape, md, s2 in (((1, 12, 70, 300), 4, 1), ((1, 8, 40, 512), 6, 2),
+                                    ((1, 10, 90, 40), 12, 5), ((2, 7, 75, 64), 20, 6))
+              for dt in ("bfloat16", "float32")]
     max_err = 0.0
     per_frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     bounds = []
@@ -171,8 +178,8 @@ def phase_kernels_correlation():
         bound, by = correlation_bound_ms(shape, md, s2, dt)
         print(f"kernel correlation {name} {tuple(shape)} md={md} s2={s2} {dt}: "
               f"max_abs_err={float(err.max()):.3e} (tol {atol:g} + {rtol:g}*|ref|) "
-              f"{'ok' if ok else 'FAIL'} ms={ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={bound:.4f} ({by})")
+              f"{'ok' if ok else 'FAIL'} ms={ms:.4f} bound_ms={bound:.4f} ({by}) "
+              f"ratio {ms / bound:.1f}x plain_ms={plain:.4f}")
         if not ok:
             raise AssertionError(f"correlation kernel disagrees at {name} {shape} {dt}")
         if name in sites and dt == "bfloat16":  # the half-flow main path
@@ -188,16 +195,17 @@ def phase_kernels_correlation():
 
 
 def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
-    """One windowed-DCN case on the card: kernel (through its wrapper)
-    against deform_conv2d_windowed_reference on the same inputs, then the
-    times. Tolerance, relative to the output's scale: f32 (TF32 off)
-    1e-4 * max|ref| + 1e-5 (summation order); bf16 2^-6 * max|ref| (the
-    kernel rounds Y_k = X W_k to bf16, the plain version rounds the mixed
-    X samples before its product, as the JAX pair does)."""
+    """One windowed-DCN case on the card: the wrapper (bf16: the fused
+    gather-mix-product kernel; f32: tap products and the mix kernel) against
+    deform_conv2d_windowed_reference on the same inputs, then the times.
+    Tolerance, relative to the output's scale: bf16 2^-16 * max|ref| (the
+    fused kernel's A tile holds the plain version's bf16-rounded samples bit
+    for bit, so only the order of the f32 sum differs; these inputs show at
+    most ~2^-18); f32 (TF32 off) 1e-4 * max|ref| + 1e-5 (the f32 route
+    multiplies before it mixes, the plain version after)."""
     import torch
     from vps_torch.ops.deform_conv import (
-        deform_conv2d_windowed, deform_conv2d_windowed_reference,
-        windowed_mix, windowed_tap_products)
+        deform_conv2d_windowed, deform_conv2d_windowed_reference)
 
     b, h, w, cin = shape
     dtype = getattr(torch, dt)
@@ -213,50 +221,43 @@ def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     ref_max = float(want.abs().max())
-    tol = 2.0 ** -6 * ref_max if dt == "bfloat16" else 1e-4 * ref_max + 1e-5
+    tol = 2.0 ** -16 * ref_max if dt == "bfloat16" else 1e-4 * ref_max + 1e-5
     ms = cuda_ms(lambda: deform_conv2d_windowed(*args))
-    y = windowed_tap_products(x, weight)
-    mm_ms = cuda_ms(lambda: windowed_tap_products(x, weight))
-    kernel_ms = cuda_ms(lambda: windowed_mix(y, off, (3, 3), 1, window))
-    del y
     plain = cuda_ms(lambda: deform_conv2d_windowed_reference(*args), iters=10)
-    bounds = windowed_bounds_ms(b, h, w, cin, cout, dt)
+    bound, by = windowed_bound_ms(b, h, w, cin, cout, dt)
     print(f"kernel deform_conv_windowed {tuple(shape)}->{cout} R={window} "
           f"offsets N(0,{scale:g}){' rounded' if rounded else ''} {dt}: "
           f"max_abs_err={err:.3e} (tol {tol:.3e}, max|ref| {ref_max:.3e}) "
-          f"{'ok' if err <= tol else 'FAIL'} ms={ms:.4f} "
-          f"(kernel {kernel_ms:.4f} + Y matmul {mm_ms:.4f}) plain_ms={plain:.4f} "
-          f"bound_ms={bounds['wrapper'][0]:.4f} ({bounds['wrapper'][1]}) "
-          f"kernel_bound_ms={bounds['kernel'][0]:.4f} ({bounds['kernel'][1]})")
+          f"{'ok' if err <= tol else 'FAIL'} ms={ms:.4f} bound_ms={bound:.4f} "
+          f"({by}) ratio {ms / bound:.1f}x plain_ms={plain:.4f}")
     if err > tol:
         raise AssertionError(f"windowed DCN kernel disagrees at {shape}->{cout} "
                              f"R={window} {dt}")
-    return dict(err=err, ms=ms, kernel_ms=kernel_ms, mm_ms=mm_ms, plain_ms=plain,
-                bound=bounds["wrapper"], kernel_bound=bounds["kernel"])
+    return dict(err=err, ms=ms, plain_ms=plain, bound=(bound, by))
 
 
 def phase_kernels_windowed():
     """Windowed DCN vs its plain version: the 12 launches of a half-flow
     frame (4 levels x 3 convs, bf16, offsets N(0, 1.5), R = 4), level 0 with
-    the offsets x8 (mostly clamped to +-R), and ragged shapes in f32 and
-    bf16 at R = 4 and 2 (Cout 40 and 6: 16-byte and scalar paths, integer
-    offsets). ms, plain_ms and bound_ms of the JSON line are per frame:
-    sums over the 12 launches of the wrapper (Y matmul + kernel)."""
+    the offsets x8 (mostly clamped to +-R), and ragged shapes in bf16 and f32
+    at R = 4 and 2 (Cin 48 -> Cout 40, integer offsets; Cin 16 -> Cout 6,
+    element-wise stores; Cin 20 -> Cout 12, element-wise corner reads).
+    ms, plain_ms and bound_ms of the JSON line are per frame: sums over the
+    12 launches of the whole function. The weight is cast to bf16 once, as
+    the semantic head keeps it between frames."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, kernel_ms=0.0,
-                 mm_ms=0.0, kernel_bound_ms=0.0)
+    frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     bound_by = []
     max_err = 0.0
     for cin, cout in DCN_CONVS:
         for h, w in DCN_LEVELS:
             r = _windowed_case(gen, (1, h, w, cin), cout, WINDOW, 1.5, "bfloat16")
             max_err = max(max_err, r["err"])
-            for key in ("ms", "plain_ms", "kernel_ms", "mm_ms"):
+            for key in ("ms", "plain_ms"):
                 frame[key] += r[key]
             frame["bound_ms"] += r["bound"][0]
-            frame["kernel_bound_ms"] += r["kernel_bound"][0]
             bound_by.append(r["bound"])
     h0, w0 = DCN_LEVELS[0]
     extra = [((1, h0, w0, cin), cout, WINDOW, 12.0, "bfloat16", False)
@@ -265,14 +266,14 @@ def phase_kernels_windowed():
               for window in (4, 2) for dt in ("float32", "bfloat16")]
     extra += [((2, 37, 53, 48), 40, 4, 3.0, dt, True)
               for dt in ("float32", "bfloat16")]
-    extra += [((1, 9, 11, 16), 6, 4, 3.0, "float32", True)]
+    extra += [((1, 9, 11, 16), 6, 4, 3.0, dt, True) for dt in ("float32", "bfloat16")]
+    # Cin 20: element-wise corner reads
+    extra += [((2, 13, 21, 20), 12, 4, 1.5, dt, False) for dt in ("float32", "bfloat16")]
     for case in extra:
         max_err = max(max_err, _windowed_case(gen, *case)["err"])
     print(f"kernel deform_conv_windowed per frame (12 launches, bf16, R={WINDOW}): "
-          f"ms={frame['ms']:.4f} (kernel {frame['kernel_ms']:.4f} + Y matmul "
-          f"{frame['mm_ms']:.4f}) plain_ms={frame['plain_ms']:.4f} "
-          f"bound_ms={frame['bound_ms']:.4f} kernel_bound_ms="
-          f"{frame['kernel_bound_ms']:.4f}")
+          f"ms={frame['ms']:.4f} bound_ms={frame['bound_ms']:.4f} ratio "
+          f"{frame['ms'] / frame['bound_ms']:.1f}x plain_ms={frame['plain_ms']:.4f}")
     return dict(name="deform_conv_windowed", route="cuda",
                 source="vps_torch/csrc/deform_conv_windowed.cu",
                 replaces="vps_tpu/ops/deform_conv.py:447",
@@ -320,6 +321,7 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
     from vps_torch import zoo
     from vps_torch.models.detectors import (
         PanopticFuseTrack, empty_track_state, predict_video, random_init_)
+    from vps_torch.models.panoptic_fpn import DeformConvWithOffset
     from vps_torch.ops import correlation, deform_conv2d_windowed
 
     cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), "half-flow")
@@ -346,6 +348,9 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
     first, carry = predict_video(det, frames[:1], [True], state, frames[0])
     _sync(device)
     t1 = time.perf_counter()
+    # the windowed kernel's weight layouts, made in the first frame
+    dcns = [m for m in det.modules() if isinstance(m, DeformConvWithOffset)]
+    layouts = [getattr(m._cast, "_vps_fused_weight", None) for m in dcns]
     rest, carry = predict_video(det, frames[1:], [False] * (FRAMES - 1),
                                 carry[0], carry[2], prev_feats=carry[1])
     _sync(device)
@@ -362,6 +367,11 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} over "
                              f"{FRAMES} frames")
+    kept = sum(a is not None and getattr(m._cast, "_vps_fused_weight", None) is a
+               for m, a in zip(dcns, layouts))
+    if on_card and dcn_window and kept != len(dcns):
+        raise AssertionError(f"windowed weight layouts rebuilt after frame 0: "
+                             f"{len(dcns) - kept} of {len(dcns)}")
     ndet = out["det_valid"].sum(1).tolist()
     nkeep = out["num_keep"].tolist()
     fps = (FRAMES - 1) / (t2 - t1)
@@ -371,7 +381,10 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
           f"(frame 0 reset), init {init_s:.1f}s, first frame {t1 - t0:.3f}s, "
           f"steady {fps:.3f} frames/s over {FRAMES - 1} frames, "
           f"peak mem {peak / 2**30:.2f} GiB, launches {launches} "
-          f"over {FRAMES} frames, dets/frame {ndet}, kept/frame {nkeep}, "
+          f"over {FRAMES} frames, "
+          + (f"DCN weight layouts kept from frame 0 {kept}/{len(dcns)}, "
+             if dcn_window else "")
+          + f"dets/frame {ndet}, kept/frame {nkeep}, "
           f"TF32 off; card: {smi}")
     return launches
 

@@ -224,6 +224,48 @@ def test_deform_conv2d_windowed_rejects_bad_input():
         ops.deform_conv2d_windowed(x, off.to("meta"), w)
 
 
+@pytest.mark.parametrize("cout,cin,bn", [(40, 48, 128), (130, 24, 256)])
+def test_fused_windowed_weight_layout(cout, cin, bn):
+    """The fused windowed kernel's weight slabs: (K, ceil(Cin/64), Cout padded
+    to the tile, 64), zero past Cout and Cin, chunk c of row r at c ^ (r % 8),
+    and kept on the weight until it changes in place."""
+    from vps_torch.ops.deform_conv import _fused_weight
+
+    weight = T(np.random.RandomState(15).randn(cout, cin, 3, 3)).bfloat16()
+    w = _fused_weight(weight, bn)
+    nck, cpad = -(-cin // 64), -(-cout // bn) * bn
+    assert tuple(w.shape) == (9, nck, cpad, 64) and w.is_contiguous()
+    want = torch.zeros(9, cpad, nck * 64, dtype=torch.bfloat16)
+    want[:, :cout, :cin] = weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    for ck in range(nck):
+        for r in range(cpad):
+            for c in range(8):
+                pos = (c ^ (r % 8)) * 8
+                assert torch.equal(w[:, ck, r, pos:pos + 8],
+                                   want[:, r, ck * 64 + c * 8:ck * 64 + c * 8 + 8])
+    assert _fused_weight(weight, bn) is w
+    weight.mul_(2)
+    assert _fused_weight(weight, bn) is not w
+
+
+def test_windowed_weight_cast_kept():
+    """The windowed head keeps its bf16 weight between frames (so the fused
+    kernel's layout, cached on it, is built once), makes it anew when the
+    parameter changes, and casts afresh, with its gradient, under autograd."""
+    from vps_torch.models.panoptic_fpn import DeformConvWithOffset
+
+    m = DeformConvWithOffset(8, 6, dcn_window=2)
+    with torch.inference_mode():
+        w1 = m._windowed_weight(torch.bfloat16)
+        assert m._windowed_weight(torch.bfloat16) is w1
+    with torch.no_grad():
+        m.conv.weight.mul_(2)
+        w2 = m._windowed_weight(torch.bfloat16)
+    assert w2 is not w1
+    assert torch.equal(w2, m.conv.weight.detach().bfloat16())
+    assert m._windowed_weight(torch.bfloat16).requires_grad
+
+
 @pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
 def test_multilevel_roi_align(sampling):
     rng = np.random.RandomState(5)
@@ -279,14 +321,22 @@ def test_nms_identical_keep_sets(seed):
 
 @pytest.mark.cuda
 def test_correlation_kernel_matches_plain_on_card():
-    """The CUDA kernel against correlation_reference on the card, f32 and
-    bf16, at both call-site geometries and a ragged one. f32: 1e-5 (sum
-    order); bf16: one output ulp (rtol 2^-7) + 1e-6."""
+    """The CUDA kernels against correlation_reference on the card: f32 (the
+    SIMT kernel) within 1e-5 (sum order); bf16 (the tensor-core kernel)
+    within one output ulp (rtol 2^-7) + 1e-6. Both call-site geometries,
+    ragged ones (C = 30 is staged element by element), FlowNetC's geometry
+    with W not a multiple of the 64-pixel block, stride 3 and 4, C > 256
+    (f1 staged with every unit; C = 300 element by element) and stride 5 and
+    6 (residue groups)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
     for shape, md, s2 in [((1, 32, 64, 256), 4, 1), ((1, 16, 32, 256), 20, 2),
-                          ((2, 37, 53, 96), 4, 1), ((2, 37, 53, 30), 6, 2)]:
+                          ((2, 37, 53, 96), 4, 1), ((2, 37, 53, 30), 6, 2),
+                          ((1, 64, 100, 256), 20, 2), ((1, 9, 50, 64), 6, 3),
+                          ((1, 12, 70, 40), 80, 4), ((1, 12, 70, 300), 4, 1),
+                          ((1, 8, 40, 512), 6, 2), ((1, 10, 90, 40), 12, 5),
+                          ((2, 7, 75, 64), 20, 6)]:
         for dt, rtol, atol in ((torch.float32, 0, 1e-5),
                                (torch.bfloat16, 2.0 ** -7, 1e-6)):
             f1 = torch.randn(shape, generator=gen, device="cuda").to(dt)
@@ -300,11 +350,14 @@ def test_correlation_kernel_matches_plain_on_card():
 
 @pytest.mark.cuda
 def test_deform_conv2d_windowed_kernel_matches_plain_on_card():
-    """The CUDA kernel against deform_conv2d_windowed_reference on the card:
-    f32 (TF32 off) within 1e-4 * max|ref| + 1e-5 (sum order); bf16 within
-    2^-6 * max|ref| (the kernel rounds Y_k = X W_k to bf16, the plain
-    version rounds the mixed X samples). Ragged shapes, Cout that takes the
-    scalar path, offsets in and past the window, integer offsets."""
+    """The CUDA kernels against deform_conv2d_windowed_reference on the card:
+    f32 (TF32 off; tap products, then the mix kernel) within 1e-4 * max|ref|
+    + 1e-5 (sum order); bf16 (the fused gather-mix-product kernel, whose A
+    tile holds the plain version's bf16 samples bit for bit) within 2^-16 *
+    max|ref| (f32 sum order only). Ragged shapes, Cout that takes
+    element-wise stores, both output-channel tiles (Cout 64 and 130), Cin 20
+    (element-wise corner reads), offsets in and past the window, integer
+    offsets, a grid small enough to split."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -312,13 +365,14 @@ def test_deform_conv2d_windowed_kernel_matches_plain_on_card():
     for (b, h, w, cin, cout), window, scale in [
             ((1, 32, 64, 64, 64), 4, 1.5), ((1, 32, 64, 64, 32), 4, 12.0),
             ((2, 37, 53, 48, 40), 4, 1.5), ((2, 37, 53, 48, 40), 2, 1.5),
-            ((1, 9, 11, 16, 6), 4, 3.0)]:
+            ((1, 9, 11, 16, 6), 4, 3.0), ((3, 20, 35, 24, 130), 3, 2.0),
+            ((2, 13, 21, 20, 12), 4, 1.5)]:
         x = torch.randn(b, h, w, cin, generator=gen, device="cuda")
         off = torch.randn(b, h, w, 18, generator=gen, device="cuda") * scale
         weight = torch.randn(cout, cin, 3, 3, generator=gen, device="cuda") / 20
         for offset in (off, off.round()):
             for dt, rel, atol in ((torch.float32, 1e-4, 1e-5),
-                                  (torch.bfloat16, 2.0 ** -6, 0.0)):
+                                  (torch.bfloat16, 2.0 ** -16, 0.0)):
                 got = ops.deform_conv2d_windowed(x.to(dt), offset,
                                                  weight.to(dt), 1, window)
                 want = ops.deform_conv2d_windowed_reference(

@@ -7,72 +7,85 @@
 //
 // for the k-th displacement (dy, dx) in {-md .. md step s2}^2, row-major with
 // dy outer; f2 reads zero outside the map; accumulation in f32; the output is
-// channel-last (B, H, W, D^2) in the input dtype. One kernel serves every
-// stride, batch and channel count (FlowNetC: md 20, s2 2, 441 channels;
-// LiteFlowNetCorr: md 4, s2 1, 81 channels).
+// channel-last (B, H, W, D^2) in the input dtype (FlowNetC: md 20, s2 2, 441
+// channels; LiteFlowNetCorr: md 4, s2 1, 81 channels).
 //
 // What bounds it on an H100: bytes. Counting each input byte read once and
 // each output byte written once, LiteFlowNetCorr at 1024x2048 (256x512x256
 // bf16 maps -> 81 channels) moves ~155 MB, ~46 us at 3.35 TB/s, while its
 // 5.4 GFLOP take ~5.5 us at the 989 TF/s bf16 peak; FlowNetC at half-flow
-// (64x128x256 -> 441) moves ~16 MB, ~5 us.
+// (64x128x256 -> 441) moves ~16 MB, ~5 us. What bounds a kernel in practice
+// is the re-reading: each f2 row serves D output rows, and each output row
+// needs D f2 rows, so the f2 traffic from L2 is ~D times the map.
 //
-// Design (simple and correct first, not yet fast):
-//  * one block = one output row segment of TW pixels for ONE displacement
-//    row dy (grid.z = batch x displacement rows), one thread per pixel;
-//  * channels are staged through shared memory in chunks of CC: the f1
-//    segment and the f2 row segment haloed by md on each side. FlowNetC's
-//    halo (2*md = 40 px) times 256 channels would not fit 227 KB, so the
-//    chunking keeps shared memory at ~22 KB whatever C is;
-//  * staging loads are 16 bytes per thread (8 bf16 / 4 f32 channels) when
-//    C and the pointers allow it, one element otherwise;
-//  * both tiles are stored channel-major ([c][x]) with odd plane strides,
-//    so the transposed stores from coalesced NHWC loads and the per-pixel
-//    reads of the compute loop are free of bank conflicts;
-//  * each thread keeps the `steps` dx displacements of its pixel in f32
-//    registers (MAXS is a compile-time bound, the loop is fully unrolled
-//    and predicated so acc never spills to local memory);
-//  * ragged edges: pixels past W are masked on store, f2 columns/rows
-//    outside the map and channels past C are staged as zeros;
-//  * 1/C is applied after the f32 sum, then the value is cast to the
-//    output dtype; stores are scalar, so D^2 = 81 or 441 needs no tail.
-// f1 is re-staged once per displacement row (from L2); a later PR can keep
-// it resident and register-block the dx loop.
+// Two routes, chosen by dtype:
+//
+// bf16 (every preset that runs correlation in bf16): corr_bf16_tc, a band
+// product on the tensor cores.
+//  * A block owns S = 64 output pixels of one row (48 at s2 = 3) and walks
+//    every displacement row itself, so its output is one contiguous span of
+//    S * D^2 values per row. 8 warps: 4 m-tiles of 16 pixels x 2 groups.
+//  * Each m-tile holds pixels of one residue class mod s2 (x = x_t + s2 i).
+//    The f2 columns they need are then one dense band of the same residue
+//    (x_t - md + s2 n, n < 15 + D), and P = F1_tile . F2_band^T runs as NT =
+//    ceil((15 + D) / 8) n-tiles of mma.sync m16n8k16 (bf16 in, f32
+//    accumulators). LiteFlowNetCorr: 3 n-tiles; FlowNetC: 5 (36 of 40
+//    columns used).
+//  * The f1 segment is staged once and kept in registers as A fragments
+//    (C <= 256: 64 registers), so shared memory holds only the f2 ring. For
+//    C > 256 each pipeline unit stages its 64-channel f1 chunk beside its f2
+//    rows instead, and the fragments are read from there.
+//  * For s2 > 4 a block takes 4 of the s2 residue classes of a 16 s2-pixel
+//    segment and stages only their pixels, interleaved as at s2 = 4, so the
+//    band product is the same; its output is stored straight out.
+//  * f2 row segments (S + 2 md columns, haloed by md) are staged in bf16 by
+//    cp.async, 64 channels a unit, in a ring of up to 8 stages, so the copies
+//    of later units run while one is multiplied. The 2 warp groups take
+//    alternate displacement rows of the same output row or, where the grid
+//    stays large (LiteFlowNetCorr), output rows y and y + s2, which share
+//    every staged f2 row: D + 1 staged rows serve 2 output rows.
+//  * Operands reach the tensor cores through ldmatrix from 128-byte rows
+//    whose 16-byte chunks are XOR-swizzled by (row / e) & 7, e = min(s2, 4):
+//    the 8 rows an ldmatrix phase reads are e apart and land in 8 distinct
+//    bank groups.
+//  * Epilogue: each accumulator P[i][n] is out[x_i, dy, n - i] when
+//    0 <= n - i < D; it is scaled by 1/C in f32, rounded to bf16 and put
+//    straight into the block's output tile in shared memory, written out
+//    with 16-byte stores at the end (where the tile would not fit, D^2 >
+//    ~1000 at s2 >= 2, straight to device memory).
+//  * Products of bf16 values are exact in f32, so the result differs from
+//    the plain version only in the order of the f32 sum.
+//  * Edges: pixels past W, f2 columns outside the map and channels past C
+//    are staged as zeros; displacement rows outside the map skip the product
+//    and give zeros. Any B, W, C and s2; D <= 41. C % 8 == 0 with 16-byte
+//    aligned maps takes cp.async; any other C is staged element by element.
+//
+// f32 (the exact preset only; tensor cores would change the answer through
+// TF32): corr_f32, the SIMT kernel of the first port. One block = one output
+// row segment of 64 pixels for ONE displacement row, one thread per pixel,
+// channels staged through shared memory in chunks of 32, each thread
+// keeping its pixel's `steps` dx sums in registers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
+
+// ---------------------------------------------------------------- f32 SIMT
+
+namespace simt {
 
 constexpr int TW = 64;  // output pixels per block, one thread each
 constexpr int CC = 32;  // channels staged per pass
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// V consecutive channels from a 16-byte-aligned address, as floats
-__device__ __forceinline__ void load_vec(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float* v) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&q);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 f = __bfloat1622float2(h[j]);
-    v[2 * j] = f.x;
-    v[2 * j + 1] = f.y;
-  }
-}
-
 // Stage pixels [x_first, x_first + ncol) of one image row (pixel index `row`
 // of its x = 0) of an NHWC map, channels [c0, c0 + CC), into
 // dst[c * stride + col]; zero outside the map or past C. V = channels per
-// load: 1, or 16 bytes' worth when C and the pointers allow it.
-template <typename T, int V>
-__device__ __forceinline__ void stage(float* dst, int stride, const T* __restrict__ src,
+// load: 1, or 4 (16 bytes) when C and the pointers allow it.
+template <int V>
+__device__ __forceinline__ void stage(float* dst, int stride, const float* __restrict__ src,
                                       size_t row, bool row_ok, int x_first, int ncol,
                                       int W, int C, int c0, int tx) {
   constexpr int G = CC / V;  // loads per pixel
@@ -82,9 +95,10 @@ __device__ __forceinline__ void stage(float* dst, int stride, const T* __restric
     float v[V];
     if (row_ok && gx >= 0 && gx < W && gc < C) {
       if constexpr (V == 1) {
-        v[0] = to_f(src[(row + gx) * C + gc]);
+        v[0] = src[(row + gx) * C + gc];
       } else {
-        load_vec(src + (row + gx) * C + gc, v);
+        const float4 q = *reinterpret_cast<const float4*>(src + (row + gx) * C + gc);
+        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
       }
     } else {
 #pragma unroll
@@ -95,15 +109,9 @@ __device__ __forceinline__ void stage(float* dst, int stride, const T* __restric
   }
 }
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-template <typename T, int MAXS, int V>
+template <int MAXS, int V>
 __global__ void __launch_bounds__(TW)
-corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out,
+corr_f32(const float* __restrict__ f1, const float* __restrict__ f2, float* __restrict__ out,
          int H, int W, int C, int md, int s2, int steps) {
   extern __shared__ float smem[];
   const int span = TW + 2 * md;  // f2 columns one row segment can touch
@@ -128,8 +136,8 @@ corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out
   for (int i = 0; i < MAXS; ++i) acc[i] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += CC) {
-    stage<T, V>(f1s, f1_stride, f1, row1, true, x0, TW, W, C, c0, tx);
-    stage<T, V>(f2s, f2_stride, f2, row2, row_ok, x0 - md, span, W, C, c0, tx);
+    stage<V>(f1s, f1_stride, f1, row1, true, x0, TW, W, C, c0, tx);
+    stage<V>(f2s, f2_stride, f2, row2, row_ok, x0 - md, span, W, C, c0, tx);
     __syncthreads();
     const int cn = min(CC, C - c0);
     for (int c = 0; c < cn; ++c) {
@@ -144,64 +152,472 @@ corr_fwd(const T* __restrict__ f1, const T* __restrict__ f2, T* __restrict__ out
 
   const int gx = x0 + tx;
   if (gx < W) {
-    T* o = out + (row1 + gx) * (size_t)(steps * steps) + (size_t)iy * steps;
+    float* o = out + (row1 + gx) * (size_t)(steps * steps) + (size_t)iy * steps;
     const float fc = (float)C;
 #pragma unroll
     for (int ix = 0; ix < MAXS; ++ix)
-      if (ix < steps) o[ix] = from_f<T>(acc[ix] / fc);
+      if (ix < steps) o[ix] = acc[ix] / fc;
   }
 }
 
-template <typename T, int MAXS, int V>
+template <int MAXS, int V>
 cudaError_t launch(const void* f1, const void* f2, void* out, int B, int H, int W,
                    int C, int md, int s2, int steps, cudaStream_t stream) {
   const dim3 grid((W + TW - 1) / TW, H, B * steps);
   const size_t smem = (size_t)CC * ((TW + 1) + ((TW + 2 * md) | 1)) * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        corr_fwd<T, MAXS, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        corr_f32<MAXS, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  corr_fwd<T, MAXS, V><<<grid, TW, smem, stream>>>(
-      static_cast<const T*>(f1), static_cast<const T*>(f2), static_cast<T*>(out),
+  corr_f32<MAXS, V><<<grid, TW, smem, stream>>>(
+      static_cast<const float*>(f1), static_cast<const float*>(f2), static_cast<float*>(out),
       H, W, C, md, s2, steps);
   return cudaGetLastError();
 }
 
-template <typename T, int V>
+template <int V>
 cudaError_t dispatch_steps(const void* f1, const void* f2, void* out, int B, int H,
                            int W, int C, int md, int s2, cudaStream_t stream) {
   const int steps = 2 * (md / s2) + 1;
-  if (steps <= 9) return launch<T, 9, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
-  if (steps <= 21) return launch<T, 21, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
-  if (steps <= 41) return launch<T, 41, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
+  if ((size_t)B * steps > 65535) return cudaErrorInvalidValue;
+  if (steps <= 9) return launch<9, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
+  if (steps <= 21) return launch<21, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
+  if (steps <= 41) return launch<41, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
 cudaError_t dispatch(const void* f1, const void* f2, void* out, int B, int H, int W,
                      int C, int md, int s2, cudaStream_t stream) {
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = (C % V == 0) && reinterpret_cast<size_t>(f1) % 16 == 0 &&
+  const bool vec = (C % 4 == 0) && reinterpret_cast<size_t>(f1) % 16 == 0 &&
                    reinterpret_cast<size_t>(f2) % 16 == 0;
-  return vec ? dispatch_steps<T, V>(f1, f2, out, B, H, W, C, md, s2, stream)
-             : dispatch_steps<T, 1>(f1, f2, out, B, H, W, C, md, s2, stream);
+  return vec ? dispatch_steps<4>(f1, f2, out, B, H, W, C, md, s2, stream)
+             : dispatch_steps<1>(f1, f2, out, B, H, W, C, md, s2, stream);
 }
+
+}  // namespace simt
+
+// ------------------------------------------------------- bf16 tensor cores
+
+namespace tc {
+
+constexpr int THREADS = 256;  // 8 warps: 4 m-tiles x 2 groups
+constexpr int NG = 2;         // warp groups
+constexpr int KC = 64;        // channels per staged chunk
+constexpr int MAX_NCK = 4;    // f1 fragments in registers: C <= 256
+constexpr int ROWB = KC * 2;  // bytes per staged row: eight 16-byte chunks
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_SMEM = 227 * 1024;
+constexpr int HALF_SMEM = 113 * 1024;  // two blocks an SM
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+// wait until at most n groups are pending (n is an immediate in PTX)
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::); break;
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r1) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+// d += a (16x16 bf16, row) . b (16x8 bf16, col), f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Stage nrow pixels of one image row (`rowp` points at its x = 0, channel 0)
+// of a bf16 NHWC map, channels [c0, c0 + KC), into 128-byte rows of `dst`:
+// row r holds pixel gx0 + r % e + s2 * (r / e) (gx0 + r when e = s2), its
+// 16-byte chunk ch at position ch ^ ((r / e) & 7). The 8 rows one ldmatrix
+// phase reads are e apart, so their keys differ and they land in 8 distinct
+// bank groups. r / e is taken as (r * e_magic) >> 32, exact for these r.
+// Zeros outside the map and past C; vec: 16-byte cp.async (C % 8 == 0,
+// aligned map), else element-wise.
+__device__ __forceinline__ void stage_rows(char* dst, const uint16_t* __restrict__ rowp,
+                                           int gx0, int nrow, int W, int C, int c0, int s2,
+                                           int e, uint64_t e_magic, bool vec, int tid) {
+  const int ch = tid & 7, gc = c0 + ch * 8;
+  for (int r = tid >> 3; r < nrow; r += THREADS / 8) {
+    const int rq = (int)(((uint64_t)r * e_magic) >> 32);  // r / e
+    char* d = dst + r * ROWB + ((ch ^ (rq & 7)) << 4);
+    const int gx = gx0 + r + (s2 - e) * rq;
+    const bool in_map = (unsigned)gx < (unsigned)W;
+    const uint16_t* p = rowp + (ptrdiff_t)gx * C + gc;
+    if (vec) {
+      const bool ok = in_map && gc < C;
+      cp_async16(smem_u32(d), ok ? p : rowp, ok);
+    } else {
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = gc + 2 * j;
+        const uint32_t lo = (in_map && c < C) ? p[2 * j] : 0u;
+        const uint32_t hi = (in_map && c + 1 < C) ? p[2 * j + 1] : 0u;
+        w[j] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint4*>(d) = make_uint4(w[0], w[1], w[2], w[3]);
+    }
+  }
+}
+
+// The two warp groups of a block either share one output row and take
+// alternate displacement rows (a pipeline unit stages 2 f2 rows), or, with
+// `pair`, take output rows y0 and y0 + s2, for which f2 row y0 - md + t s2
+// is displacement row t of the first and t - 1 of the second: a unit stages
+// one f2 row that both use, so D + 1 staged rows serve 2 output rows instead
+// of 2 D. Pairs halve the grid, so they come first only where it stays large.
+//
+// Pixels are staged in rows of stride e = min(s2, 4) per residue class. For
+// s2 <= 4 the staged rows are the pixels in order, and a block owns S
+// contiguous pixels. For s2 > 4 a segment of 16 s2 pixels holds s2 residue
+// classes; a block takes 4 of them (blockIdx.x = segment * rgroups + group)
+// and stages only their pixels, the 4 classes interleaved, so the product
+// runs as at s2 = 4.
+struct Geometry {
+  int e;          // staged-row stride of a residue class: min(s2, 4)
+  int rgroups;    // blocks a segment: ceil(s2 / 4) for s2 > 4, else 1
+  int span;       // pixels a segment spans: S, or 16 s2 for s2 > 4
+  int S;          // output pixels per block: 4 m-tiles of 16 (48 at s2 = 3)
+  int NT;         // n-tiles per m-tile: ceil((15 + steps) / 8), rounded to 3, 5 or 7
+  int ncol2;      // staged f2 rows per image row (a row slot: ncol2 x 128 bytes)
+  int nck;        // 64-channel chunks
+  int f1ring;     // C > 256: each unit stages its f1 chunk (else A fragments in registers)
+  int pair;       // the groups take 2 output rows (else 2 displacement rows)
+  int nst;        // ring stages
+  int stage_out;  // output tile(s) in shared memory (else stored straight out)
+  size_t smem;
+};
+
+// NCK 1..4 (C <= 256): the block's f1 chunks are staged once and kept as A
+// fragments in registers. NCK 0 (any C): every pipeline unit stages its f1
+// chunk beside its f2 rows, and the A fragments are read from it.
+template <int NCK, int NT>
+__global__ void __launch_bounds__(THREADS)
+corr_bf16_tc(const uint16_t* __restrict__ f1, const uint16_t* __restrict__ f2,
+             uint16_t* __restrict__ out, int H, int W, int C, int md, int s2, int steps,
+             const Geometry g, uint64_t e_magic, int vec, float inv_c) {
+  extern __shared__ __align__(128) char smem[];
+  const int e = g.e, S = g.S;
+  const int nck = NCK > 0 ? NCK : g.nck;
+  const int slot_bytes = g.ncol2 * ROWB;  // one staged f2 row
+  const int f1_bytes = S * ROWB;          // one staged f1 chunk of the block's pixels
+  const int rps = g.pair ? 1 : NG;        // f2 rows a unit stages
+  const int f1_rows = g.pair ? NG : 1;    // output rows of the block
+  const int stage_bytes = rps * slot_bytes + (NCK == 0 ? f1_rows * f1_bytes : 0);
+  char* ring = smem;  // g.nst stages
+  uint16_t* osm = reinterpret_cast<uint16_t*>(smem + (size_t)g.nst * stage_bytes);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int grp = warp >> 2;  // warp group
+  const int mt = warp & 3;    // m-tile: staged rows base + e * i, i < 16
+  const int seg = blockIdx.x / g.rgroups;
+  const int xoff = 4 * (blockIdx.x - seg * g.rgroups);  // first residue class (s2 > 4)
+  const int x0 = seg * g.span, b = blockIdx.z;
+  // ybase: the row of f2's displacement 0 offset; this group's output row
+  const int ybase = g.pair ? (blockIdx.y / s2) * 2 * s2 + blockIdx.y % s2 : blockIdx.y;
+  const int y = ybase + (g.pair ? grp * s2 : 0);
+  const int D2 = steps * steps;
+  const int tile_elems = (S * D2 + 16 + 7) / 8 * 8;  // an output tile, 16-byte multiple
+  const size_t row1 = ((size_t)b * H + (y < H ? y : 0)) * W;  // pixel index of (b, y, 0)
+  const size_t e0 = (row1 + x0) * (size_t)D2;   // first output element of the tile
+  const int shift = (int)(e0 & 7);              // tile[shift + j] <-> out[e0 + j]
+  uint16_t* tile = osm + (g.pair ? grp * tile_elems : 0);
+  const int base = (mt / e) * 16 * e + mt % e;
+  const bool has_tile = mt < S / 16 && xoff + mt % e < s2 && y < H;
+  const int lx0 = xoff + mt % e + s2 * (base / e);  // pixel of staged row base, from x0
+  // ldmatrix rows of this lane: A rows i = lane & 15 (chunk + 1 for lanes
+  // 16..31), B rows n = lane & 7 (chunk + 1 for lanes 8..15); every row a
+  // lane addresses has swizzle key (row / e) & 7 = lane & 7
+  const int key = lane & 7;
+  const uint32_t a_row = (base + e * (lane & 15)) * ROWB, a_hi = lane >> 4;
+  const uint32_t b_row = (base + e * (lane & 7)) * ROWB, b_hi = (lane >> 3) & 1;
+  // chunk ck of the block's pixels in output row ybase + r s2
+  auto stage_f1 = [&](char* dst, int r, int ck) {
+    const int yr = ybase + r * s2;
+    if (yr < H)
+      stage_rows(dst, f1 + ((size_t)b * H + yr) * W * C, x0 + xoff, S, W, C, ck * KC, s2, e,
+                 e_magic, vec, tid);
+  };
+
+  // NCK > 0: this group's f1 chunks -> A fragments in registers, through
+  // the ring
+  uint32_t a[NCK > 0 ? NCK * 4 : 1][4];
+  if constexpr (NCK > 0) {
+    for (int r = 0; r < f1_rows; ++r) {
+#pragma unroll
+      for (int ck = 0; ck < NCK; ++ck) stage_f1(ring + (size_t)(r * NCK + ck) * f1_bytes, r, ck);
+    }
+    cp_commit();
+    cp_wait(0);
+    __syncthreads();
+#pragma unroll
+    for (int ck = 0; ck < NCK; ++ck) {
+      const uint32_t p =
+          smem_u32(ring + (size_t)((g.pair ? grp * NCK : 0) + ck) * f1_bytes) + a_row;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (has_tile) ldsm_x4(p + (((2 * kk + a_hi) ^ key) << 4), a[ck * 4 + kk]);
+    }
+    __syncthreads();  // the ring is free again
+  }
+
+  // pipeline units (v, channel chunk): f2 rows t = v * rps + j, j < rps, at
+  // ybase - md + t * s2 (t < steps, or t <= steps with pairs), and with
+  // NCK 0 the chunk of f1
+  const int nv = g.pair ? steps + 1 : (steps + NG - 1) / NG;
+  const int U = nv * nck;
+  auto issue = [&](int u) {
+    if (u < U) {
+      const int v = u / nck, ck = u - v * nck;
+      char* st = ring + (size_t)(u % g.nst) * stage_bytes;
+      for (int j = 0; j < rps; ++j) {
+        const int t = v * rps + j, yy = ybase - md + t * s2;
+        if (t < steps + g.pair && yy >= 0 && yy < H)
+          stage_rows(st + j * slot_bytes, f2 + ((size_t)b * H + yy) * W * C, x0 + xoff - md,
+                     g.ncol2, W, C, ck * KC, s2, e, e_magic, vec, tid);
+      }
+      if constexpr (NCK == 0) {
+        for (int r = 0; r < f1_rows; ++r) stage_f1(st + rps * slot_bytes + r * f1_bytes, r, ck);
+      }
+    }
+    cp_commit();  // possibly empty: keeps the group count uniform
+  };
+  for (int u = 0; u < g.nst - 1; ++u) issue(u);
+
+  const int gq = lane >> 2, q = 2 * (lane & 3);  // accumulator row / column of this lane
+  for (int v = 0; v < nv; ++v) {
+    // this group's f2 row of the unit (sub-row jg) and its displacement row
+    const int jg = g.pair ? 0 : grp;
+    const int iy = g.pair ? v - grp : v * NG + grp;
+    const int yy = ybase - md + (v * rps + jg) * s2;
+    const bool active = has_tile && iy >= 0 && iy < steps && yy >= 0 && yy < H;
+    float acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+#pragma unroll
+    for (int ck = 0; ck < nck; ++ck) {
+      const int u = v * nck + ck;
+      cp_wait(g.nst - 2);  // unit u has landed
+      __syncthreads();     // unit u visible to all; unit u - 1's stage free
+      issue(u + g.nst - 1);
+      if (active) {
+        const char* st = ring + (size_t)(u % g.nst) * stage_bytes;
+        const uint32_t bb = smem_u32(st + jg * slot_bytes) + b_row;
+        const uint32_t pa =
+            smem_u32(st + rps * slot_bytes + (g.pair ? grp : 0) * f1_bytes) + a_row;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (ck * KC + kk * 16 >= C) break;  // only zero channels left
+          const uint32_t bk = bb + (((2 * kk + b_hi) ^ key) << 4);
+          auto band = [&](const uint32_t* ak) {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt) {
+              uint32_t b0, b1;
+              ldsm_x2(bk + nt * (8 * e * ROWB), b0, b1);
+              mma_bf16(acc[nt], ak, b0, b1);
+            }
+          };
+          if constexpr (NCK > 0) {
+            band(a[ck * 4 + kk]);
+          } else {
+            uint32_t af[4];
+            ldsm_x4(pa + (((2 * kk + a_hi) ^ key) << 4), af);
+            band(af);
+          }
+        }
+      }
+    }
+    // P[i][n] = acc: out[x_i, iy, n - i] for 0 <= n - i < steps, scaled by
+    // 1/C in f32 and rounded to bf16 (rows out of the map give zeros)
+    if (has_tile && iy >= 0 && iy < steps) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+        for (int k4 = 0; k4 < 4; ++k4) {
+          const int i = gq + 8 * (k4 >> 1), ix = nt * 8 + q + (k4 & 1) - i;
+          if ((unsigned)ix < (unsigned)steps) {
+            const uint16_t val =
+                __bfloat16_as_ushort(__float2bfloat16_rn(acc[nt][k4] * inv_c));
+            const int lx = lx0 + s2 * i, k = iy * steps + ix;
+            if (g.stage_out)
+              tile[shift + lx * D2 + k] = val;
+            else if (x0 + lx < W)
+              out[(row1 + x0 + lx) * (size_t)D2 + k] = val;
+          }
+        }
+      }
+    }
+  }
+
+  if (g.stage_out) {  // each output row's span, 16-byte stores where whole
+    __syncthreads();
+    for (int r = 0; r < f1_rows; ++r) {
+      const int yr = ybase + r * s2;
+      if (yr >= H) break;
+      const size_t f = (((size_t)b * H + yr) * W + x0) * (size_t)D2;
+      const int sh = (int)(f & 7);
+      const uint16_t* src = osm + r * tile_elems;
+      const size_t n = (size_t)min(S, W - x0) * D2;
+      const size_t first = f >> 3, last = (f + n + 7) >> 3;
+      for (size_t v = first + tid; v < last; v += THREADS) {
+        const size_t gidx = v << 3;
+        const int sidx = (int)(gidx - (f - sh));
+        if (gidx >= f && gidx + 8 <= f + n) {
+          *reinterpret_cast<uint4*>(out + gidx) = *reinterpret_cast<const uint4*>(src + sidx);
+        } else {
+          for (int j = 0; j < 8; ++j)
+            if (gidx + j >= f && gidx + j < f + n) out[gidx + j] = src[sidx + j];
+        }
+      }
+    }
+  }
+}
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// Block geometry and shared memory of one launch; false if none fits.
+bool plan(int C, int s2, int steps, bool out_aligned, int B, int H, int W, Geometry* g) {
+  if (s2 < 1 || steps > 41) return false;
+  g->e = s2 < 4 ? s2 : 4;
+  g->rgroups = s2 > 4 ? (s2 + 3) / 4 : 1;
+  g->S = 16 * g->e * (4 / g->e);
+  g->span = s2 > 4 ? 16 * s2 : g->S;
+  const int nt = (15 + steps + 7) / 8;
+  g->NT = nt <= 3 ? 3 : nt <= 5 ? 5 : 7;
+  g->ncol2 = g->S - 16 * g->e + g->e * g->NT * 8;  // every band row of every m-tile
+  g->nck = (C + KC - 1) / KC;
+  g->f1ring = g->nck > MAX_NCK;
+  const size_t slot = (size_t)g->ncol2 * ROWB, f1b = (size_t)g->S * ROWB;
+  const size_t tile = ((size_t)g->S * steps * steps + 16 + 7) / 8 * 16;  // bf16
+  // pairs first where they leave at least two blocks an SM
+  const long long blocks_x = (long long)((W + g->span - 1) / g->span) * g->rgroups;
+  const long long pair_blocks = B * blocks_x * ((H + 2 * s2 - 1) / (2 * s2)) * s2;
+  const int first = pair_blocks >= 2LL * sm_count() ? 1 : 0;
+  for (int t = 0; t < 2; ++t) {
+    const int pair = t == 0 ? first : 1 - first;
+    const int rows = pair ? NG : 1;
+    const size_t stage = (pair ? 1 : NG) * slot + (g->f1ring ? rows * f1b : 0);
+    // with A fragments in registers, the f1 chunks pass through the ring first
+    const size_t f1_pre = g->f1ring ? 0 : rows * g->nck * f1b;
+    const int min_st = max(2, (int)((f1_pre + stage - 1) / stage));
+    const size_t tiles = rows * tile;
+    const bool stage_out =
+        out_aligned && g->rgroups == 1 && tiles + min_st * stage <= (size_t)MAX_SMEM;
+    const size_t used = stage_out ? tiles : 0;
+    // the deepest ring that keeps two blocks an SM if it can, else one block
+    const size_t budget =
+        used + max(min_st, 4) * stage <= (size_t)HALF_SMEM ? HALF_SMEM : MAX_SMEM;
+    if (used + min_st * stage > budget) continue;
+    g->pair = pair;
+    g->stage_out = stage_out;
+    g->nst = (int)min((size_t)MAX_STAGES, (budget - used) / stage);
+    g->smem = used + g->nst * stage;
+    return true;
+  }
+  return false;
+}
+
+template <int NCK, int NT>
+cudaError_t launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                   int md, int s2, int steps, const Geometry& g, bool vec,
+                   cudaStream_t stream) {
+  auto kernel = corr_bf16_tc<NCK, NT>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)g.smem);
+  if (e != cudaSuccess) return e;
+  const int rows = g.pair ? (H + 2 * s2 - 1) / (2 * s2) * s2 : H;
+  const dim3 grid((W + g.span - 1) / g.span * g.rgroups, rows, B);
+  const uint64_t magic = ((1ull << 32) + g.e - 1) / g.e;
+  kernel<<<grid, THREADS, g.smem, stream>>>(
+      static_cast<const uint16_t*>(f1), static_cast<const uint16_t*>(f2),
+      static_cast<uint16_t*>(out), H, W, C, md, s2, steps, g, magic, (int)vec,
+      1.0f / (float)C);
+  return cudaGetLastError();
+}
+
+template <int NCK>
+cudaError_t dispatch_nt(const void* f1, const void* f2, void* out, int B, int H, int W,
+                        int C, int md, int s2, int steps, const Geometry& g, bool vec,
+                        cudaStream_t stream) {
+  switch (g.NT) {
+    case 3: return launch<NCK, 3>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    case 5: return launch<NCK, 5>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    case 7: return launch<NCK, 7>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                     int md, int s2, cudaStream_t stream) {
+  const int steps = 2 * (md / s2) + 1;
+  Geometry g;
+  if (!plan(C, s2, steps, reinterpret_cast<size_t>(out) % 16 == 0, B, H, W, &g))
+    return cudaErrorInvalidValue;
+  const bool vec = C % 8 == 0 && reinterpret_cast<size_t>(f1) % 16 == 0 &&
+                   reinterpret_cast<size_t>(f2) % 16 == 0;
+  if (g.f1ring) return dispatch_nt<0>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+  switch (g.nck) {
+    case 1: return dispatch_nt<1>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    case 2: return dispatch_nt<2>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    case 3: return dispatch_nt<3>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    case 4: return dispatch_nt<4>(f1, f2, out, B, H, W, C, md, s2, steps, g, vec, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// f1, f2: (B, H, W, C) contiguous, f32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// out: (B, H, W, D^2) of the same dtype. Returns cudaGetLastError() of the
-// launch (0 = success).
+// f1, f2: (B, H, W, C) contiguous, f32 (is_bf16 = 0: the SIMT kernel) or
+// bf16 (is_bf16 = 1: the tensor-core kernel); out: (B, H, W, D^2) of the
+// same dtype. Returns cudaGetLastError() of the launch (0 = success), or
+// cudaErrorInvalidValue for a geometry the kernel does not take.
 extern "C" int vps_correlation_forward(const void* f1, const void* f2, void* out,
                                        int B, int H, int W, int C, int md, int s2,
                                        int is_bf16, void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || md < 0 || s2 <= 0)
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || md < 0 || s2 <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      is_bf16 ? dispatch<__nv_bfloat16>(f1, f2, out, B, H, W, C, md, s2, st)
-              : dispatch<float>(f1, f2, out, B, H, W, C, md, s2, st);
+  const cudaError_t e = is_bf16 ? tc::dispatch(f1, f2, out, B, H, W, C, md, s2, st)
+                                : simt::dispatch(f1, f2, out, B, H, W, C, md, s2, st);
   return (int)e;
 }
 

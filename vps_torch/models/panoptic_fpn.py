@@ -47,13 +47,27 @@ class DeformConvWithOffset(nn.Module):
         self.dcn_window = dcn_window
         self.conv_offset = Conv(in_channels, k * k * 2, 3, 1, 1, device=device)
         self.conv = _DeformWeight(in_channels, out_channels, k, device=device)
+        self._cast = self._cast_key = None
+
+    def _windowed_weight(self, dt):
+        """The DCN weight in ``dt`` for ``deform_conv2d_windowed``. Without
+        autograd the cast is kept until the parameter changes (its storage
+        or version), so the kernel's weight layout, cached on that tensor, is
+        built once rather than every frame."""
+        w = self.conv.weight
+        if torch.is_grad_enabled():
+            return w.to(dt)
+        key = (dt, w.data_ptr(), None if w.is_inference() else w._version)
+        if self._cast_key != key:
+            self._cast, self._cast_key = w.detach().to(dt), key
+        return self._cast
 
     def forward(self, xs):
         dt = self.compute_dtype or torch.float32
         offsets = [self.conv_offset(x).permute(0, 2, 3, 1) for x in xs]
         xcs = [x.to(dt).permute(0, 2, 3, 1).contiguous() for x in xs]
         if self.dcn_window is not None:
-            weight = self.conv.weight.to(dt)
+            weight = self._windowed_weight(dt)
             outs = [deform_conv2d_windowed(xc, off, weight, self.padding,
                                            int(self.dcn_window))
                     for xc, off in zip(xcs, offsets)]

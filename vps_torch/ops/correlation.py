@@ -1,12 +1,21 @@
 """Correlation / cost volume (port of vps_tpu/ops/correlation.py).
 
-``correlation`` launches the hand-written Hopper kernel
+``correlation`` launches a hand-written Hopper kernel
 (``vps_torch/csrc/correlation.cu``) on CUDA tensors and takes the plain
 PyTorch version, ``correlation_reference``, only for CPU tensors. Layout is
 NHWC at the public function, as in the JAX package: f1, f2 (B, H, W, C) ->
 (B, H, W, D^2) with D = 2 * (md // stride2) + 1, displacements row-major with
 dy outer, f2 zero outside the map, f32 accumulation, output in the input
 dtype.
+
+Routes on the card, by dtype:
+  * bfloat16 (the ``half-flow`` and faster presets): a band product on the
+    tensor cores (mma.sync, bf16 in, f32 sums). One block per output row
+    segment walks all D displacement rows with its f1 segment in registers
+    (staged with each f2 row instead where C > 256) and the f2 rows streamed
+    in by cp.async.
+  * float32 (the ``exact`` preset): a SIMT kernel with f32 products, since
+    the tensor cores would round its inputs to TF32.
 """
 
 from __future__ import annotations
@@ -79,16 +88,17 @@ def correlation(f1, f2, max_displacement: int, stride2: int = 1):
         raise ValueError(f"correlation: {steps} displacement steps per axis "
                          f"(md {max_displacement}) exceed the kernel's "
                          f"{MAX_STEPS} / md 96")
-    if h > 65535 or b * steps > 65535:
+    bf16 = f1.dtype == torch.bfloat16
+    if h > 65535 or b * (1 if bf16 else steps) > 65535:
         raise ValueError("correlation: grid too large (H or B*steps > 65535)")
+    lib = _lib()
     out = torch.empty((b, h, w, steps * steps), dtype=f1.dtype,
                       device=f1.device)
-    lib = _lib()
-    with torch.cuda.device(f1.device):
-        stream = torch.cuda.current_stream(f1.device).cuda_stream
+    with cuda_build.on_device(f1.device):
         rc = lib.vps_correlation_forward(
             f1.data_ptr(), f2.data_ptr(), out.data_ptr(), b, h, w, c,
-            max_displacement, stride2, int(f1.dtype == torch.bfloat16), stream)
+            max_displacement, stride2, int(bf16),
+            cuda_build.stream_ptr(f1.device))
     cuda_build.check(lib, rc, "correlation kernel launch")
     correlation.launches += 1
     return out

@@ -8,6 +8,7 @@ hash of the source and flags; nothing is compiled when a module is imported.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -79,6 +80,27 @@ def load(source: str) -> ctypes.CDLL:
             lib.vps_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[source] = lib
         return lib
+
+
+def on_device(device):
+    """A context that makes the CUDA ``device`` current for a launch (a no-op
+    when it already is, which saves the switch on every call)."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stream_ptr(device) -> int:
+    """The raw cudaStream_t of ``device``'s current stream, for a launch.
+    Through ``torch._C`` (as Triton's launchers do): the public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    and costs a few microseconds a launch."""
+    import torch
+
+    index = torch.cuda.current_device() if device.index is None else device.index
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

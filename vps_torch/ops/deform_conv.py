@@ -6,9 +6,13 @@ versions are XLA compositions: per kernel tap, bilinear (or nearest) corner
 gathers, then a (taps x Cin) -> Cout product accumulated in f32.
 
 ``deform_conv2d_windowed`` clamps each offset to [-window, window] and runs
-the hand-written Hopper kernel (``vps_torch/csrc/deform_conv_windowed.cu``)
-on CUDA tensors; ``deform_conv2d_windowed_reference`` is its plain version,
-taken only for CPU tensors and for the backward.
+a hand-written Hopper kernel (``vps_torch/csrc/deform_conv_windowed.cu``)
+on CUDA tensors: bf16 inputs (every preset's) through one fused kernel that
+gathers and mixes the bilinear samples and multiplies them with the weight
+on the tensor cores, so the tap products never reach device memory; f32
+inputs through the tap products Y_k = X W_k (one matmul) and a kernel that
+mixes 4 corners of Y_k per tap. ``deform_conv2d_windowed_reference`` is the
+plain version, taken only for CPU tensors and for the backward.
 
 Offsets follow the CUDA layout: 2K channels, (dy, dx) pairs per tap
 k = i * kw + j. Public functions are NHWC with the weight in torch layout
@@ -20,6 +24,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from vps_torch.ops import cuda_build
 
@@ -129,18 +134,104 @@ def _check_windowed(x, offset, weight, padding, window):
 
 def _windowed_lib():
     lib = cuda_build.load("deform_conv_windowed.cu")
-    fn = lib.vps_deform_conv_windowed_forward
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+    fused = lib.vps_deform_conv_windowed_fused
+    if fused.argtypes is None:
+        fused.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                          + [ctypes.c_float, ctypes.c_void_p])
+        fused.restype = ctypes.c_int
+        plan = lib.vps_deform_conv_windowed_plan
+        plan.argtypes = ([ctypes.c_int] * 8 + [ctypes.c_float]
+                         + [ctypes.POINTER(ctypes.c_int)] * 2)
+        plan.restype = ctypes.c_int
+        mix = lib.vps_deform_conv_windowed_mix
+        mix.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
+                        + [ctypes.c_float, ctypes.c_void_p])
+        mix.restype = ctypes.c_int
     return lib
 
 
+def _aligned(t):
+    """``t`` contiguous at a 16-byte-aligned address (a copy if need be)."""
+    if not t.is_contiguous():
+        t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_FUSED_PLANS: dict = {}  # launch shape -> (bn, splits), from the library
+
+
+def _fused_weight(weight, bn: int):
+    """The fused kernel's weight: (Cout, Cin, kh, kw) -> (K, ceil(Cin / 64),
+    Cout padded to a multiple of ``bn``, 64) bf16, zero-padded, with each
+    row's 16-byte chunk c (8 channels) stored at c ^ (row % 8): the swizzle of
+    the kernel's shared tiles, so that one bulk copy brings a whole (tap,
+    channel chunk) tile in. Kept on the weight tensor until it changes in
+    place. A weight cast anew for every call gets no use of it, which is why
+    ``DeformConvWithOffset`` keeps its cast weight."""
+    # an inference tensor has no version counter
+    version = None if weight.is_inference() else weight._version
+    key = (weight.data_ptr(), version, bn)
+    cached = getattr(weight, "_vps_fused_weight", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    cout, cin, kh, kw = weight.shape
+    k, nck, cpad = kh * kw, -(-cin // 64), -(-cout // bn) * bn
+    w = weight.detach().permute(2, 3, 0, 1).reshape(k, cout, cin)
+    w = F.pad(w, (0, nck * 64 - cin, 0, cpad - cout))
+    w = w.reshape(k, cpad, nck, 8, 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(cpad, device=w.device)
+    src = torch.arange(8, device=w.device)[None, :] ^ (rows % 8)[:, None]
+    w = torch.gather(w, 3, src[None, None, :, :, None].expand(k, nck, cpad, 8, 8))
+    w = w.reshape(k, nck, cpad, 64)
+    weight._vps_fused_weight = (key, w)
+    return w
+
+
+def windowed_fused(x, offset, weight, padding: int = 1, window: int = 4):
+    """The bf16 route: one fused kernel gathers the 4 bilinear corners of x
+    at each pixel's clamped position per tap, mixes them in f32, rounds the
+    sample to bf16 and multiplies it with W_k on the tensor cores, summing
+    over taps and input channels in f32. x (B, H, W, Cin) bf16 (16-byte
+    corner reads where Cin % 8 == 0, else element-wise), offset (B, H, W,
+    2K) f32, weight (Cout, Cin, kh, kw) bf16, all CUDA; returns (B, H, W,
+    Cout) f32. A grid too small to fill the card
+    splits the reduction over blocks: their partial sums go to a scratch
+    tensor and a second kernel adds them in a fixed order."""
+    b, h, w, cin = x.shape
+    cout, _, kh, kw = weight.shape
+    if x.device.type != "cuda" or x.dtype != torch.bfloat16:
+        raise ValueError("windowed_fused: the kernel takes bf16 CUDA tensors")
+    lib = _windowed_lib()
+    key = (b, h, w, cin, cout, kh, kw, padding, float(window))
+    plan = _FUSED_PLANS.get(key)
+    if plan is None:
+        bn, splits = ctypes.c_int(), ctypes.c_int()
+        if not lib.vps_deform_conv_windowed_plan(*key, ctypes.byref(bn),
+                                                 ctypes.byref(splits)):
+            raise ValueError(f"windowed_fused: the kernel does not take x "
+                             f"{tuple(x.shape)}, weight {tuple(weight.shape)}")
+        plan = _FUSED_PLANS[key] = (bn.value, splits.value)
+    bn, splits = plan
+    x, offset = _aligned(x), _aligned(offset)
+    wt = _fused_weight(weight, bn)
+    out = torch.empty((b, h, w, cout), dtype=torch.float32, device=x.device)
+    part = (torch.empty((splits, b, h, w, cout), dtype=torch.float32,
+                        device=x.device) if splits > 1 else None)
+    with cuda_build.on_device(x.device):
+        rc = lib.vps_deform_conv_windowed_fused(
+            x.data_ptr(), offset.data_ptr(), wt.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(), b, h, w, cin, cout, kh,
+            kw, padding, float(window),
+            cuda_build.stream_ptr(x.device))
+    cuda_build.check(lib, rc, "fused windowed deformable conv kernel launch")
+    deform_conv2d_windowed.launches += 1
+    return out
+
+
 def windowed_tap_products(x, weight):
-    """Y[b, y, x, k, :] = x[b, y, x, :] @ W_k in x's dtype (f32
-    accumulation), one matmul of (B*H*W, Cin) by (Cin, K*Cout). The JAX
-    package computes the same einsum outside its Pallas kernel."""
+    """Y[b, y, x, k, :] = x[b, y, x, :] @ W_k (f32 route), one matmul of
+    (B*H*W, Cin) by (Cin, K*Cout). The JAX package computes the same einsum
+    outside its Pallas kernel."""
     b, h, w, cin = x.shape
     cout, _, kh, kw = weight.shape
     wmat = weight.permute(1, 2, 3, 0).reshape(cin, kh * kw * cout)
@@ -149,14 +240,17 @@ def windowed_tap_products(x, weight):
 
 
 def windowed_mix(y, offset, kernel_size, padding: int = 1, window: int = 4):
-    """Launch the kernel on precomputed tap products ``y`` (B, H, W, K, Cout)
-    (bf16 or f32, contiguous) and f32 offsets (B, H, W, 2K) (contiguous):
-    out (B, H, W, Cout) f32 = sum over taps of the bilinear sample of Y_k at
-    each pixel's clamped position. CUDA tensors only."""
+    """The f32 route's kernel on precomputed tap products ``y`` (B, H, W, K,
+    Cout) f32 and offsets (B, H, W, 2K) f32, CUDA and contiguous: out (B, H,
+    W, Cout) f32 = sum over taps of the bilinear sample of Y_k at each
+    pixel's clamped position."""
     kh, kw = kernel_size
     b, h, w, k, cout = y.shape
     if y.device.type != "cuda" or offset.device != y.device:
         raise ValueError("windowed_mix: the kernel takes CUDA tensors")
+    if y.dtype != torch.float32:
+        raise TypeError("windowed_mix: the mix kernel is the f32 route; bf16 "
+                        "takes windowed_fused")
     if not (y.is_contiguous() and offset.is_contiguous()):
         raise ValueError("windowed_mix: the kernel takes contiguous tensors")
     if k != kh * kw or tuple(offset.shape) != (b, h, w, 2 * k):
@@ -164,32 +258,38 @@ def windowed_mix(y, offset, kernel_size, padding: int = 1, window: int = 4):
                          f"{tuple(offset.shape)} do not agree")
     out = torch.empty((b, h, w, cout), dtype=torch.float32, device=y.device)
     lib = _windowed_lib()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        rc = lib.vps_deform_conv_windowed_forward(
+    with cuda_build.on_device(y.device):
+        rc = lib.vps_deform_conv_windowed_mix(
             y.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w, cout,
-            kh, kw, padding, int(y.dtype == torch.bfloat16), float(window),
-            stream)
+            kh, kw, padding, float(window), cuda_build.stream_ptr(y.device))
     cuda_build.check(lib, rc, "windowed deformable conv kernel launch")
     deform_conv2d_windowed.launches += 1
     return out
 
 
+def _windowed_forward(x, offset, weight, padding, window):
+    """A kernel on CUDA tensors (bf16: ``windowed_fused``; f32: the tap
+    products, then ``windowed_mix``), the plain version on CPU ones."""
+    if x.device.type == "cpu":
+        return deform_conv2d_windowed_reference(x, offset, weight, padding,
+                                                window)
+    if x.dtype == torch.bfloat16:
+        return windowed_fused(x, offset, weight, padding, window)
+    y = windowed_tap_products(x, weight)
+    return windowed_mix(y, offset.contiguous(), weight.shape[2:], padding,
+                        window)
+
+
 class _DeformConvWindowed(torch.autograd.Function):
-    """Forward: the kernel on CUDA tensors, the plain version on CPU ones.
-    Backward: autograd through the plain version (JAX's ``_dcw_bwd``; there
-    is no backward kernel on either side)."""
+    """Forward: ``_windowed_forward``. Backward: autograd through the plain
+    version (JAX's ``_dcw_bwd``; there is no backward kernel on either
+    side)."""
 
     @staticmethod
     def forward(ctx, x, offset, weight, padding, window):
         ctx.save_for_backward(x, offset, weight)
         ctx.conf = (padding, window)
-        if x.device.type == "cpu":
-            return deform_conv2d_windowed_reference(x, offset, weight,
-                                                    padding, window)
-        y = windowed_tap_products(x, weight)
-        return windowed_mix(y, offset.contiguous(), weight.shape[2:],
-                            padding, window)
+        return _windowed_forward(x, offset, weight, padding, window)
 
     @staticmethod
     def backward(ctx, grad):
@@ -211,11 +311,15 @@ def deform_conv2d_windowed(x, offset, weight, padding: int = 1,
 
     x: (B, H, W, Cin) f32 or bf16; offset: (B, H, W, 2K) f32; weight:
     (Cout, Cin, kh, kw) in x's dtype. Returns (B, H, W, Cout) f32. CUDA
-    tensors go through the kernel (Y_k = x @ W_k in x's dtype, then a
-    4-corner bilinear read of Y_k per tap) or raise; CPU tensors through
-    ``deform_conv2d_windowed_reference``."""
+    tensors go through a kernel or raise: bf16 through the fused
+    gather-mix-product kernel, f32 through the tap products
+    Y_k = x @ W_k and a 4-corner bilinear read of Y_k per tap. CPU tensors
+    go through ``deform_conv2d_windowed_reference``."""
     _check_windowed(x, offset, weight, padding, window)
-    return _DeformConvWindowed.apply(x, offset, weight, padding, window)
+    if torch.is_grad_enabled() and (x.requires_grad or offset.requires_grad
+                                    or weight.requires_grad):
+        return _DeformConvWindowed.apply(x, offset, weight, padding, window)
+    return _windowed_forward(x, offset, weight, padding, window)
 
 
 deform_conv2d_windowed.launches = 0  # kernel launches (CUDA path only)

@@ -10,8 +10,13 @@ frames, then profiles
 time on the host clock without and with the profiler, the device-busy share
 of the profiled window (summed kernel time / wall time), device time per
 predict stage (kernel time and host time of the named ranges in
-PanopticFuseTrack.predict), the host syncs, and the kernels with the most
-device time. Needs a card; TF32 is off, as in chip_smoke.py.
+PanopticFuseTrack.predict), the host syncs, the port's own kernels
+(``vps_torch/csrc``) and the kernels with the most device time. The port's
+kernels are launched through ctypes, outside any PyTorch op, and the
+profiler links a kernel to a named range only through an op: the stage sums
+leave them out, so they are listed on their own (correlation belongs to
+flownet2 and fuse_neck, the windowed DCN to semantic_head). Needs a card;
+TF32 is off, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -33,6 +38,8 @@ from vps_torch.models.detectors import (
 
 STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
           "bbox_dets", "track", "mask_fusion")
+# name parts of the kernels in vps_torch/csrc
+PORT_KERNELS = ("corr_bf16_tc", "corr_f32", "dcw_fused", "dcw_mix", "sum_parts")
 
 
 def _kernel_us(evt) -> float:
@@ -99,6 +106,12 @@ def main(argv=None) -> None:
             print(f"stage {name:14s} kernels {sum(map(_kernel_us, ranges)) / per:8.2f}"
                   f" ms  host {sum(e.cpu_time_total for e in ranges) / per:8.2f}"
                   f" ms per frame")
+    for name, us in sorted(kernels.items()):
+        if any(part in name for part in PORT_KERNELS):
+            count = sum(1 for e in events if e.name == name
+                        and e.device_type == torch.autograd.DeviceType.CUDA)
+            print(f"port kernel {us / per:8.4f} ms/frame  {count / args.frames:g} "
+                  f"launches/frame  {name[:80]}")
     syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
     print(f"host syncs (item/bool/int of a device tensor): "
           f"{syncs / args.frames:g} per frame")
