@@ -8,7 +8,9 @@ Phases, each printing its own line of numbers:
                  times and the card (nvidia-smi).
   2. kernels  -- each kernel against its plain PyTorch version on the card,
                  at the shapes its path gives it (and ragged ones), with the
-                 tolerance stated; CUDA-event medians beside the bound.
+                 tolerance stated; CUDA-event medians beside the bound. The
+                 correlation backward against the plain version's gradients
+                 at the training shape and FlowNetC's geometry.
   3. main     -- PanopticFuseTrack at the full R-50 `half-flow` preset with
                  seeded random weights, predict_video over seeded random
                  1024x2048 frames (the first a reset); asserts finite outputs
@@ -16,10 +18,23 @@ Phases, each printing its own line of numbers:
                  prints steady-state frames/s and peak device memory.
      window   -- the same with `panoptic.dcn_window = 4`: the semantic head's
                  12 deformable convs a frame run the windowed kernel.
+     train    -- FuseTrack training at full width: R-50, f32 compute, one
+                 seeded synthetic 800x1600 sample (things and stuff rendered
+                 with numpy, gt padded to 100, a reference frame), batch 1,
+                 `fusetrack_train_cfg`, through the port's Runner: 1 warm-up
+                 and 5 timed SGD steps; prints s/step, peak memory, every
+                 loss term at the first and last step; fails on a non-finite
+                 loss, a skipped step, an unchanged trainable or a changed
+                 frozen parameter, or a kernel that did not launch. Before
+                 it, step 1's forward twice, compared point by point (where
+                 the two part, the op that is not deterministic); after it,
+                 one step split and profiled by vps_torch.profile.
   4. small    -- the tiny `exact` model on a 64x128 clip on the card against
                  the same model's plain CPU path: equal detections and keep
                  sets, >= 0.999 semantic/panoptic agreement; then the same
-                 with `dcn_window = 4`.
+                 with `dcn_window = 4`; then the tiny model's loss terms and
+                 selection-free gradients on the card against the CPU path,
+                 same weights, sampler draws and discrete choices.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. Any failure raises: exit code
@@ -31,9 +46,11 @@ as the JAX reference computes it.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -51,6 +68,31 @@ WINDOW = 4  # panoptic.dcn_window of the windowed path
 # tower of (Cin, Cout) convs over the 4 FPN levels, one launch per level
 DCN_LEVELS = [(H // 4 >> i, W // 4 >> i) for i in range(4)]
 DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
+# training: the reference crop (vps_tpu/data/transforms.py), gt padded to
+# max_gt, 1 warm-up + 5 timed steps; LiteFlowNetCorr's input at that crop
+# (the 1/4 FPN level)
+TRAIN_H, TRAIN_W, MAX_GT = 800, 1600, 100
+TRAIN_STEPS = 6
+TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
+# the Runner's checkpoints go to a temporary directory in here (git-ignored)
+WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs")
+# the Cityscapes palette's first 19 classes, for rendering synthetic frames
+PALETTE = np.array([
+    (128, 64, 128), (244, 35, 232), (70, 70, 70), (102, 102, 156),
+    (190, 153, 153), (153, 153, 153), (250, 170, 30), (220, 220, 0),
+    (107, 142, 35), (152, 251, 152), (70, 130, 180), (220, 20, 60),
+    (255, 0, 0), (0, 0, 142), (0, 0, 70), (0, 60, 100), (0, 80, 100),
+    (0, 0, 230), (119, 11, 32)], np.float32)
+IMG_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
+IMG_STD = np.array([58.395, 57.12, 57.375], np.float32)
+
+
+def flownetc_shape(h, w, flow_input_scale=0.5):
+    """FlowNetC's cost-volume input for an h x w image: the flow input
+    (scaled by flow_input_scale, 0.5 at the R-50 presets) padded to a
+    multiple of 64, at stride 8, 256 channels."""
+    fh, fw = (-(-round(n * flow_input_scale) // 64) * 8 for n in (h, w))
+    return (1, fh, fw, 256)
 
 
 def nvidia_smi() -> str:
@@ -86,6 +128,21 @@ def correlation_bound_ms(shape, md, s2, dtype_name):
     esize = 2 if dtype_name == "bfloat16" else 4
     nbytes = (2 * b * h * w * c + b * h * w * d2) * esize
     flops = 2.0 * b * h * w * d2 * c
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def correlation_backward_bound_ms(shape, md, s2, dtype_name):
+    """Least time on the card for both input gradients: f1, f2 and g read
+    once, the two gradients written once, over the HBM rate vs
+    4*B*H*W*D^2*C flops (a multiply and an add for each term of each
+    gradient) over the dtype's peak."""
+    b, h, w, c = shape
+    d2 = (2 * (md // s2) + 1) ** 2
+    esize = 2 if dtype_name == "bfloat16" else 4
+    nbytes = (4 * b * h * w * c + b * h * w * d2) * esize
+    flops = 4.0 * b * h * w * d2 * c
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -131,7 +188,8 @@ def phase_build():
 def phase_kernels_correlation():
     """Kernel vs correlation_reference at both call sites (bf16 as on the
     half-flow main path: the tensor-core kernel; and f32: the SIMT kernel),
-    at ragged shapes (C = 30 and 300, staged element by element; C = 512;
+    at both call sites of the f32 train path (the 800x1600 crop), at ragged
+    shapes (C = 30 and 300, staged element by element; C = 512;
     stride2 5 and 6), and at FlowNetC's geometry with W = 100, not a
     multiple of the 64-pixel block. Tolerance: f32 atol 1e-5 + rtol 1e-5
     (summation order); bf16 one output ulp (rtol 2^-7) + atol 1e-6: products
@@ -143,10 +201,12 @@ def phase_kernels_correlation():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sites = {
         "liteflow": ((1, H // 4, W // 4, 256), 4, 1),
-        "flownetc": ((1, H // 16, W // 16, 256), 20, 2),
+        "flownetc": (flownetc_shape(H, W), 20, 2),
     }
     cases = [(name, shape, md, s2, dt) for name, (shape, md, s2) in sites.items()
              for dt in ("bfloat16", "float32")]
+    cases += [("train-liteflow", TRAIN_CORR, 4, 1, "float32"),
+              ("train-flownetc", flownetc_shape(TRAIN_H, TRAIN_W), 20, 2, "float32")]
     cases += [("ragged", (2, 37, 53, 96), 4, 1, dt) for dt in ("bfloat16", "float32")]
     # C = 30: element-wise staging and a partial channel chunk
     cases += [("ragged", (2, 37, 53, 30), 6, 2, dt) for dt in ("bfloat16", "float32")]
@@ -160,6 +220,7 @@ def phase_kernels_correlation():
               for dt in ("bfloat16", "float32")]
     max_err = 0.0
     per_frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    per_step = dict(per_frame)
     bounds = []
     for name, shape, md, s2, dt in cases:
         dtype = getattr(torch, dt)
@@ -187,6 +248,13 @@ def phase_kernels_correlation():
             per_frame["plain_ms"] += plain
             per_frame["bound_ms"] += bound
             bounds.append((bound, by))
+        if name.startswith("train-"):
+            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                per_step[key] += v
+    print(f"kernel correlation per train step (f32, 2 launches): "
+          f"ms={per_step['ms']:.4f} bound_ms={per_step['bound_ms']:.4f} ratio "
+          f"{per_step['ms'] / per_step['bound_ms']:.1f}x "
+          f"plain_ms={per_step['plain_ms']:.4f}")
     return dict(name="correlation", route="cuda",
                 source="vps_torch/csrc/correlation.cu",
                 replaces="vps_tpu/ops/correlation.py:32",
@@ -282,6 +350,63 @@ def phase_kernels_windowed():
                 bound_ms=frame["bound_ms"])
 
 
+def phase_kernels_correlation_backward():
+    """Backward kernel vs correlation_backward_reference (autograd through
+    the plain version): LiteFlowNetCorr at the 800x1600 training crop
+    ((1, 200, 400, 256), md 4, f32 as trained, and bf16), FlowNetC's geometry
+    ((1, 64, 128, 256), md 20, s2 2) and ragged shapes. Tolerance, relative
+    to the largest gradient (sums of D^2 terms in another order; elementwise
+    bounds fail where the terms cancel): f32 1e-5 * max|ref|; bf16 one ulp
+    of the largest, 2^-7 * max|ref| (both sum in f32 and round once). The
+    JSON entry's times are the f32 training shape's (one launch a step)."""
+    import torch
+    from vps_torch.ops import correlation_backward, correlation_backward_reference
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    cases = [("train", TRAIN_CORR, 4, 1, dt) for dt in ("float32", "bfloat16")]
+    cases += [("flownetc", flownetc_shape(H, W), 20, 2, dt)
+              for dt in ("float32", "bfloat16")]
+    cases += [("ragged", shape, md, s2, dt)
+              for shape, md, s2 in (((2, 13, 37, 100), 4, 1), ((1, 9, 50, 36), 7, 3),
+                                    ((1, 20, 30, 64), 96, 6))
+              for dt in ("float32", "bfloat16")]
+    entry = None
+    max_err = 0.0
+    for name, shape, md, s2, dt in cases:
+        dtype = getattr(torch, dt)
+        d2 = (2 * (md // s2) + 1) ** 2
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(shape[:3] + (d2,), generator=gen, device="cuda").to(dtype)
+        got = correlation_backward(g, f1, f2, md, s2)
+        want = correlation_backward_reference(g, f1, f2, md, s2)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+        ref_max = max(float(b.float().abs().max()) for b in want)
+        rel = 2.0 ** -7 if dt == "bfloat16" else 1e-5
+        ok = err <= rel * ref_max
+        max_err = max(max_err, err)
+        ms = cuda_ms(lambda: correlation_backward(g, f1, f2, md, s2))
+        plain = cuda_ms(lambda: correlation_backward_reference(g, f1, f2, md, s2),
+                        iters=10)
+        bound, by = correlation_backward_bound_ms(shape, md, s2, dt)
+        print(f"kernel correlation_backward {name} {tuple(shape)} md={md} s2={s2} "
+              f"{dt}: max_abs_err={err:.3e} (tol {rel:g}*max|ref|, max|ref| "
+              f"{ref_max:.3e}) {'ok' if ok else 'FAIL'} ms={ms:.4f} "
+              f"bound_ms={bound:.4f} ({by}) ratio {ms / bound:.1f}x "
+              f"plain_ms={plain:.4f}")
+        if not ok:
+            raise AssertionError(f"correlation backward kernel disagrees at "
+                                 f"{name} {shape} {dt}")
+        if name == "train" and dt == "float32":
+            entry = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
+        del f1, f2, g, got, want
+    return dict(name="correlation_backward", route="cuda",
+                source="vps_torch/csrc/correlation.cu",
+                replaces="vps_tpu/ops/correlation.py:213",
+                max_abs_err=max_err, library_ms=None, **entry)
+
+
 def _check_outputs(out, frames, cap_det, h, w):
     import torch
 
@@ -305,6 +430,71 @@ def _check_outputs(out, frames, cap_det, h, w):
     pan = out["panoptic_outputs"]
     if not bool(((pan >= 0) & (pan < 11 + cap_det)).all()):
         raise AssertionError("panoptic ids out of range")
+
+
+def synth_sample(rng, h, w, max_gt, n_things=12, num_stuff=11):
+    """One seeded Cityscapes-VPS-like training sample, rendered with numpy:
+    stuff as wavy horizontal bands of 5 of the 11 stuff classes, things as
+    ellipses of the 8 thing classes in random boxes (later ones occlude
+    earlier ones; each mask keeps its visible pixels), colours from the
+    palette plus noise, normalised as the data pipeline does; the reference
+    frame is the same scene shifted by (3, 5) pixels with fresh noise. gt is
+    padded to max_gt with gt_valid; every thing is tracked (pid k + 1, its
+    shifted box in ref_bboxes). Keys and shapes as the Runner's batches
+    take them, without the leading batch dim."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    bands = rng.choice(num_stuff, 5, replace=False)
+    edges = np.sort(rng.randint(h // 8, h, 4))
+    wave = (h / 40 * np.sin(xs / (w / 25) + rng.rand() * 6)).astype(int)
+    seg = bands[np.searchsorted(edges, ys + wave, side="right")].astype(np.int32)
+    boxes = np.zeros((max_gt, 4), np.float32)
+    labels = np.zeros((max_gt,), np.int32)
+    masks = np.zeros((max_gt, h, w), np.uint8)
+    for i in range(n_things):
+        bw, bh = rng.randint(w // 40, w // 6), rng.randint(h // 20, h // 4)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        cx, cy = x1 + (bw - 1) / 2, y1 + (bh - 1) / 2
+        inside = ((xs - cx) / (bw / 2)) ** 2 + ((ys - cy) / (bh / 2)) ** 2 <= 1
+        masks[:i][:, inside] = 0
+        masks[i][inside] = 1
+        labels[i] = rng.randint(1, 9)
+        seg[inside] = num_stuff - 1 + labels[i]
+        boxes[i] = (x1, y1, x1 + bw - 1, y1 + bh - 1)
+    valid = np.arange(max_gt) < n_things
+    rgb = PALETTE[seg]
+    img = rgb + rng.randn(h, w, 3).astype(np.float32) * 12
+    ref = np.roll(rgb, (3, 5), axis=(0, 1)) + rng.randn(h, w, 3).astype(np.float32) * 12
+    shift = np.array([5, 3, 5, 3], np.float32)
+    ref_boxes = np.where(valid[:, None],
+                         np.minimum(boxes + shift, [w - 1, h - 1, w - 1, h - 1]), 0)
+    return dict(
+        img=((img - IMG_MEAN) / IMG_STD)[None].astype(np.float32),
+        ref_img=((ref - IMG_MEAN) / IMG_STD)[None].astype(np.float32),
+        gt_bboxes=boxes, gt_labels=labels, gt_valid=valid, gt_masks=masks,
+        gt_semantic_seg=seg[None], gt_semantic_seg_Nx=seg[None, ::4, ::4].copy(),
+        gt_pids=np.where(valid, np.arange(1, max_gt + 1), 0).astype(np.int32),
+        ref_bboxes=ref_boxes.astype(np.float32), ref_valid=valid.copy())
+
+
+class SampleLoader:
+    """The Runner's loader over one sample held on the device (loaded once,
+    as set-up): ``steps`` identical batches of 1 an epoch."""
+
+    def __init__(self, sample, device, steps):
+        import torch
+        from vps_torch.train.step import IMAGE_KEYS
+
+        self.batch = {k: torch.as_tensor(v, device=device) if k in IMAGE_KEYS
+                      else torch.as_tensor(v, device=device)[None]
+                      for k, v in sample.items()}
+        self.steps = steps
+
+    def steps_per_epoch(self):
+        return self.steps
+
+    def epoch(self, e):
+        for _ in range(self.steps):
+            yield self.batch
 
 
 def _sync(device):
@@ -389,6 +579,434 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
     return launches
 
 
+def _losses_line(losses):
+    return ", ".join(f"{k} {v:.4f}" for k, v in sorted(losses.items())
+                     if k not in ("lr", "time", "epoch", "iter"))
+
+
+def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
+                steps=TRAIN_STEPS):
+    """FuseTrack training at full width (R-50, f32 compute as the trainer's
+    default, fusetrack_train_cfg, batch 1) through the port's Runner over a
+    synthetic sample: 1 warm-up step, then ``steps - 1`` timed ones (host
+    clock around each step, ending in a synchronize). Returns the launch
+    counts of the run."""
+    import torch
+    from vps_torch import zoo
+    from vps_torch.models.detectors import PanopticFuseTrack, random_init_
+    from vps_torch.ops import correlation, correlation_backward
+    from vps_torch.train.runner import Runner
+
+    cfg = zoo.f32_compute_overrides(zoo.fusetrack_model_cfg(depth))
+    cfg.pop("type")
+    t0 = time.perf_counter()
+    det = random_init_(PanopticFuseTrack(
+        train_cfg=zoo.fusetrack_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(),
+        device=device, **cfg), seed=SEED)
+    sample = synth_sample(np.random.RandomState(SEED + 4), h, w, MAX_GT)
+    loader = SampleLoader(sample, device, steps)
+    before = {n: p.detach().clone() for n, p in det.named_parameters()}
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    probe = _determinism_probe(det, loader.batch)
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as work:
+        runner = Runner(det, loader, {}, work, total_epochs=1, log_interval=1,
+                        ckpt_interval=1, seed=SEED)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        correlation.launches = 0
+        correlation_backward.launches = 0
+        state = runner.run()
+        _sync(device)
+        launches = dict(correlation=correlation.launches,
+                        correlation_backward=correlation_backward.launches)
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        ckpt_mb = sum(os.path.getsize(os.path.join(work, f))
+                      for f in os.listdir(work)) / 2**20
+    hist = runner.log_history
+    timed = [r["time"] for r in hist[1:]]
+    trainable = {n for n, p in det.named_parameters() if p.requires_grad}
+    moved = {n for n, p in det.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    bad = [k for r in hist for k, v in r.items() if not np.isfinite(v)]
+    print(f"train: PanopticFuseTrack R-{depth} f32 {h}x{w} batch 1 "
+          f"fusetrack_train_cfg, gt {int(sample['gt_valid'].sum())} of {MAX_GT}, "
+          f"init {init_s:.1f}s, first step {hist[0]['time']:.3f}s, "
+          f"{statistics.mean(timed):.4f} s/step over {len(timed)} steps "
+          f"(min {min(timed):.4f}, max {max(timed):.4f}), peak mem "
+          f"{peak / 2**30:.2f} GiB, nonfinite_skips "
+          f"{int(hist[-1]['nonfinite_skips'])}, launches {launches} over "
+          f"{len(hist)} steps, trainable changed {len(moved & trainable)}/"
+          f"{len(trainable)}, frozen changed {len(moved - trainable)}/"
+          f"{len(before) - len(trainable)}, checkpoint {ckpt_mb:.0f} MiB; "
+          f"card: {smi}")
+    print(f"train: step 1 {_losses_line(hist[0])}")
+    print(f"train: step {len(hist)} {_losses_line(hist[-1])}")
+    if bad:
+        raise AssertionError(f"train: non-finite {sorted(set(bad))}")
+    if state.optimizer.total_notfinite or state.optimizer.count != steps:
+        raise AssertionError(f"train: {state.optimizer.total_notfinite} steps "
+                             f"skipped, {state.optimizer.count} applied")
+    if moved != trainable:
+        raise AssertionError(f"train: unchanged trainable "
+                             f"{sorted(trainable - moved)[:5]}, changed frozen "
+                             f"{sorted(moved - trainable)[:5]}")
+    want = dict(correlation=2 * steps, correlation_backward=steps)
+    if on_card and launches != want:
+        raise AssertionError(f"train: kernel launches {launches} != {want}")
+    same = [k for k in probe if k in hist[0] and hist[0][k] == probe[k]]
+    print(f"train determinism: the Runner's step 1 equals the probe's forward "
+          f"in {len(same)} of {len(probe)} terms")
+    if on_card:
+        from vps_torch.profile import train_step
+        train_step(det, loader.batch, state.optimizer,
+                   torch.Generator(device=device).manual_seed(SEED))
+    return launches
+
+
+def _fingerprints(det, batch, seed, modules=None):
+    """One forward of the training loss with the Runner's first draws
+    (generator seeded as the Runner seeds it). Returns ({point: exact
+    fingerprint} in the order recorded, total, loss terms). Points: the
+    input ("<in") and output of each of ``modules`` (name, module) pairs,
+    the detector's top-level modules by default, one point per call and
+    tensor; the proposals and the sampled RoIs; each loss term. A module's
+    points are recorded when it returns, so a leaf's come before its
+    parent's. A fingerprint sums the raw bits of a tensor as int64 with
+    position weights: equal tensors give equal fingerprints, whatever the
+    order of the sum."""
+    import torch
+    import vps_torch.models.detectors.panoptic as panoptic
+    from vps_torch.train.step import make_loss_fn
+
+    points = {}
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+    def record(name, out):
+        if isinstance(out, (tuple, list)):
+            for o in out:
+                record(name, o)
+        elif isinstance(out, torch.Tensor):
+            t = out.detach().contiguous().view(-1)
+            bits = t.view(ints[t.element_size()]).long()
+            w = torch.arange(bits.numel(), device=t.device) % 1000003 + 1
+            key = f"{name}#{sum(k.startswith(name + '#') for k in points)}"
+            points[key] = int((bits * w).sum())
+
+    def hook(name):
+        def call(m, inputs, out):
+            record(name + "<in", inputs)
+            record(name, out)
+        return call
+
+    hooks = [m.register_forward_hook(hook(n))
+             for n, m in (modules or det.named_children())]
+    wrapped = {f: getattr(panoptic, f) for f in ("rpn_proposals", "proposal_target")}
+
+    def wrap(name, fn):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            record(name, tuple(out))
+            return out
+        return call
+
+    for name, fn in wrapped.items():
+        setattr(panoptic, name, wrap(name, fn))
+    try:
+        gen = torch.Generator(device=det.device).manual_seed(seed + 12345)
+        total, log_vars = make_loss_fn(det)(batch, gen)
+    finally:
+        for h in hooks:
+            h.remove()
+        for name, fn in wrapped.items():
+            setattr(panoptic, name, fn)
+    for k, v in sorted(log_vars.items()):
+        record(k, v)
+    return points, total, {k: float(v.detach()) for k, v in log_vars.items()}
+
+
+def _differ(modules=None, det=None, batch=None):
+    """Two _fingerprints runs of step 1; the points that differ, in the
+    order recorded, and the number of points."""
+    a = _fingerprints(det, batch, SEED, modules)[0]
+    b = _fingerprints(det, batch, SEED, modules)[0]
+    return [k for k in a if a[k] != b.get(k)], len(a)
+
+
+def _determinism_probe(det, batch):
+    """Is step 1's forward the same twice in one process? Two forwards
+    compared point by point (_fingerprints); where they part, the same
+    inside the first top-level module to differ, every submodule hooked:
+    the first point to differ is the op that is not deterministic (a
+    module's output whose input is equal, or the input of a module when the
+    op is plain code between modules); then two more forwards with cuDNN
+    held to deterministic algorithms. Last, the ops that
+    torch.use_deterministic_algorithms flags in one forward and backward.
+    Returns step 1's loss terms; leaves no gradient behind."""
+    import warnings
+
+    import torch
+
+    _, _, losses = _fingerprints(det, batch, SEED)
+    differ, n = _differ(det=det, batch=batch)
+    print(f"train determinism: two forwards of step 1 in this process: "
+          f"{n - len(differ)} of {n} points bitwise equal"
+          + (f", differ at {differ[:8]}" if differ else ""))
+    top = differ[0].split("<")[0].split("#")[0] if differ else None
+    if top in dict(det.named_children()):
+        mods = [(f"{top}.{k}".rstrip("."), m)
+                for k, m in det.get_submodule(top).named_modules()]
+        inner, n = _differ(mods, det, batch)
+        if inner:
+            name = inner[0].split("<")[0].split("#")[0]
+            kind = type(dict(det.named_modules()).get(name)).__name__
+            print(f"train determinism: inside {top} ({n} points), the first "
+                  f"to differ: {inner[0]} ({kind}); then {inner[1:4]}")
+        with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                        deterministic=True, allow_tf32=False):
+            still, n = _differ(det=det, batch=batch)
+        print(f"train determinism: with cuDNN held to deterministic "
+              f"algorithms: {n - len(still)} of {n} points bitwise equal")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _, total, _ = _fingerprints(det, batch, SEED)
+            total.backward()
+            _sync(det.device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for p in det.parameters():
+        p.grad = None
+    flagged = sorted({str(w.message).split(" does not have")[0][:80]
+                      for w in caught if "deterministic" in str(w.message)})
+    print(f"train determinism: ops flagged by use_deterministic_algorithms in "
+          f"one forward + backward: {flagged}")
+    return losses
+
+
+def _proposal_divergence(own, ref, noise):
+    """Where the card's own proposals (own: boxes, scores, valid) leave the
+    CPU's (ref), and whether each departure is a near-tie under ``noise``,
+    the largest score difference between the devices over all anchors. Rows
+    in one list only are classed by their score's distance to the list's
+    last kept score (the top-k cut) and their largest IoU with the rows
+    above them (NMS keeps a box below nms_thr 0.7)."""
+    import torch
+    from vps_torch.ops.box import bbox_overlaps
+
+    (ob, os_, ov), (rb, rs, rv) = own, ref
+    n = int(rv.sum())
+    same = (ob - rb).abs().max(1).values <= 1e-3
+    if bool(same[:n].all()) and torch.equal(ov, rv):
+        return f"all {n} rows equal"
+    diff = int((~same[:n]).sum())
+    near = lambda a, b: (a[:, None, :] - b[None, :, :]).abs().max(-1).values <= 1e-3
+    in_ref = near(ob[:n], rb[:n]).any(1)
+    in_own = near(rb[:n], ob[:n]).any(1)
+    moved = int(((~same[:n]) & in_ref).sum())
+    parts = []
+    for name, boxes, scores, valid, only in (("card", ob, os_, ov, ~in_ref),
+                                             ("cpu", rb, rs, rv, ~in_own)):
+        cut = float(scores[int(valid.sum()) - 1])
+        for i in only.nonzero().flatten().tolist()[:4]:
+            iou = float(bbox_overlaps(boxes[i:i + 1], boxes[:i]).max()) if i else 0.0
+            parts.append(f"{name}-only row {i} score {float(scores[i]):.7f} "
+                         f"(cut {cut:.7f}, gap {abs(float(scores[i]) - cut):.1e}), "
+                         f"max IoU above {iou:.6f}")
+    gaps = (os_[:n] - rs[:n]).abs()[~same[:n]]
+    shift = float((ob[:n] - rb[:n]).abs().max(1).values[~same[:n]].max())
+    return (f"{diff} of {n} rows differ by more than 1e-3 px (at most "
+            f"{shift:.1e} px): {moved} reordered, largest score gap "
+            f"at a differing row {float(gaps.max()):.1e} (score noise "
+            f"{noise:.1e}); {int((~in_ref).sum())} card-only, "
+            f"{int((~in_own).sum())} cpu-only" + "".join("; " + p for p in parts))
+
+
+def _choice_divergence(own, ref):
+    """Where the card would choose otherwise than the CPU at the fuse
+    neck's discrete choices (each call: its kind, its input on that device
+    and its choice there), and how close each such choice is to a tie: for
+    a max pool, the card's value at its own pick less its value at the
+    CPU's; for a leaky ReLU, |pre-activation|. Beside it, the largest
+    difference between the two devices' inputs: a near-tie lies within it."""
+    stats = {}
+    for (kind, x, pick), (_, rx, rpick) in zip(own, ref):
+        st = stats.setdefault(kind, [0, 0, 0, 0.0, 0.0])
+        moved = pick != rpick
+        st[0] += 1
+        st[1] += pick.numel()
+        st[2] += int(moved.sum())
+        st[4] = max(st[4], float((x - rx).abs().max()))
+        if moved.any():
+            if kind == "leaky_relu":
+                gap = x.abs()[moved].max()
+            else:
+                flat = x.flatten(2)
+                gap = (flat.gather(2, pick.flatten(2))
+                       - flat.gather(2, rpick.flatten(2))).max()
+            st[3] = max(st[3], float(gap))
+    return "; ".join(f"{kind}: {flips} of {n} over {calls} calls, largest gap "
+                     f"{gap:.1e} (input noise {noise:.1e})"
+                     for kind, (calls, n, flips, gap, noise) in stats.items())
+
+
+def phase_small_train(device="cuda"):
+    """The tiny model's training loss on a 128x256 sample on the card against
+    the same model's plain CPU path: same weights, the same sampler draws
+    (both from one seeded CPU generator) and the same proposals (the CPU
+    run's, replayed on the card; where the card's own depart from them, the
+    rows are shown with their score gaps beside the score noise between the
+    devices), and the fuse neck's other discrete choices: its max pools
+    (TCEA's spatial attention, the balanced pyramid's adaptive pools) and
+    the branch of each leaky ReLU (TCEA, LiteFlowNet), the CPU's taken on
+    the card, and the card's own shown with their gaps to a tie. Every loss
+    term, and the gradients of the selection-free terms
+    (loss_segm, loss_rpn_cls, loss_rpn_bbox: no proposal selection between
+    the weights and the loss). The weights are those of
+    tests/test_torch_port_train.py: DCN offsets near 0.5 and LiteFlowNet's
+    residual flow near 0, so no trained bilinear sample sits within
+    rounding of an integer, where its gradient jumps."""
+    import torch
+    import torch.nn.functional as F
+    import vps_torch.core.sampler as sampler
+    import vps_torch.models.bfp_tcea as bfp_tcea
+    import vps_torch.models.detectors.panoptic as panoptic
+    import vps_torch.models.flow.liteflow as liteflow
+    import vps_torch.models.flow.tcea as tcea
+    from vps_torch import zoo
+    from vps_torch.models.detectors import PanopticFuseTrack, random_init_
+    from vps_torch.ops import correlation_backward
+
+    cfg = zoo.f32_compute_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()))
+    cfg.pop("type")
+    kw = dict(train_cfg=zoo.tiny_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(), **cfg)
+    cpu = random_init_(PanopticFuseTrack(device="cpu", **kw), 1)
+    with torch.no_grad():
+        cpu.bbox_head.fc_cls.weight.mul_(0.25)  # the milder classifier of
+        cpu.bbox_head.fc_cls.bias.mul_(0.25)    # phase_small
+        for n, p in cpu.named_parameters():
+            if n.startswith("panopticFPN.") and ".conv_offset." in n:
+                p.mul_(0.05) if n.endswith("weight") else p.fill_(0.5)
+            elif n == "extra_neck.liteflownet.flow_estimator.convs.3.weight":
+                p.mul_(0.01)
+    gpu = PanopticFuseTrack(device=device, **kw)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    sample = synth_sample(np.random.RandomState(SEED + 5), 128, 256, 8, n_things=4)
+    free = ("loss_segm", "loss_rpn_cls", "loss_rpn_bbox")
+    proposals, scores, picks = {}, {}, {}
+
+    def replayed(dev, kind, plain, choose, apply):
+        """``plain``, recording each call's input and discrete choice; on
+        the card, the output for the CPU's choice in the same call (the
+        gradient then takes the CPU's route)."""
+        def call(x, *args):
+            pick = choose(x, *args)
+            if pick is None:  # nothing to choose
+                return plain(x, *args)
+            calls = picks[dev]
+            calls.append((kind, x.detach().cpu(), pick.cpu()))
+            if dev == "cpu":
+                return plain(x, *args)
+            return apply(x, picks["cpu"][len(calls) - 1][2].to(x.device))
+        return call
+
+    def gather(x, idx):  # a max pool's output for the flat indices idx
+        return x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+
+    def adaptive_pick(x, size):
+        if tuple(size) == tuple(x.shape[-2:]):
+            return None
+        return F.adaptive_max_pool2d(x, tuple(size), return_indices=True)[1]
+
+    def patches(dev):
+        """(module, name, replacement) for each discrete choice replayed."""
+        return [
+            (tcea, "max_pool", replayed(
+                dev, "max_pool", tcea.max_pool,
+                lambda x, k, st, p: F.max_pool2d(x, k, st, p,
+                                                 return_indices=True)[1],
+                gather)),
+            (bfp_tcea, "adaptive_max_pool", replayed(
+                dev, "adaptive_max_pool", bfp_tcea.adaptive_max_pool,
+                adaptive_pick, gather))] + [
+            (mod, "leaky_relu", replayed(
+                dev, "leaky_relu", mod.leaky_relu, lambda x: x > 0,
+                lambda x, pos: torch.where(pos, x, x * 0.1)))
+            for mod in (tcea, liteflow)]
+
+    def run(det, dev):
+        det.zero_grad(set_to_none=True)
+        picks[dev] = []
+        gen = torch.Generator().manual_seed(SEED + 6)
+
+        def props(cls_outs, *args, **kwargs):
+            own = rpn_proposals(cls_outs, *args, **kwargs)
+            proposals[dev] = [t.cpu() for t in own]
+            scores[dev] = torch.cat([c.reshape(-1) for c in cls_outs]).sigmoid().cpu()
+            return tuple(t.to(dev) for t in proposals["cpu"])
+
+        rpn_proposals = panoptic.rpn_proposals
+        patched = [(sampler, "uniform",
+                    lambda g, shape, d: torch.rand(shape, generator=gen).to(d)),
+                   (panoptic, "rpn_proposals", props)] + patches(dev)
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        try:
+            losses = det.loss(**{k: torch.as_tensor(v, device=dev)
+                                 for k, v in sample.items()})
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        sum(losses[k] for k in free).backward()
+        grads = {n: p.grad.cpu() for n, p in det.named_parameters()
+                 if p.grad is not None}
+        return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+    want, want_g = run(cpu, "cpu")
+    correlation_backward.launches = 0
+    got, got_g = run(gpu, device)
+    if torch.device(device).type == "cuda" and correlation_backward.launches != 1:
+        raise AssertionError("small train: the backward kernel did not launch")
+    noise = float((scores[device] - scores["cpu"]).abs().max())
+    fails, parts = [], []
+    for k in sorted(want):  # relative; the selection-free terms and loss_pano
+        rel = 1e-4 if k in free + ("loss_pano",) else 1e-3  # (gt boxes) tighter
+        err = abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+        parts.append(f"{k} {got[k]:.5f}/{want[k]:.5f} rel {err:.1e} (tol {rel:g})")
+        if not err <= rel:
+            fails.append(k)
+    # per tensor, within 5e-3 of its largest CPU gradient plus 1e-6 of the
+    # largest over all tensors (f32 sums in other orders), as the CPU test
+    # holds the port to jax.grad
+    if set(got_g) != set(want_g):
+        fails.append("gradient set")
+    gmax = max(float(g.abs().max()) for g in want_g.values())
+
+    def ratios(grads):
+        return {n: float((grads[n] - g).abs().max())
+                / (5e-3 * float(g.abs().max()) + 1e-6 * gmax)
+                for n, g in want_g.items() if n in grads}
+
+    r = ratios(got_g)
+    worst = max((v, n) for n, v in r.items())
+    fails += [n for n, v in r.items() if not v <= 1.0]
+    print(f"small train: tiny f32 128x256 card vs cpu, same draws, the cpu's "
+          f"proposals: " + "; ".join(parts))
+    print(f"small train: the card's own proposals vs the cpu's: "
+          + _proposal_divergence(proposals[device], proposals["cpu"], noise))
+    print(f"small train: the card's own choices in the fuse neck vs the "
+          f"cpu's: " + _choice_divergence(picks[device], picks["cpu"]))
+    print(f"small train: selection-free gradients of {len(want_g)} tensors, "
+          f"max |card - cpu| within (5e-3 max|cpu| + 1e-6 max over all), worst "
+          f"at {worst[0]:.3f} of its limit ({worst[1]})")
+    if fails:
+        raise AssertionError(f"small train: card and cpu disagree at {fails[:5]}")
+
+
 def phase_small(device="cuda", dcn_window=None):
     """Port on the card vs the port's plain CPU path, same weights, tiny
     exact-preset model (R-18, TinyFlow) on a 3-frame 64x128 clip (with
@@ -463,13 +1081,17 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     smi = phase_build()
-    kernels = [phase_kernels_correlation(), phase_kernels_windowed()]
+    kernels = [phase_kernels_correlation(), phase_kernels_windowed(),
+               phase_kernels_correlation_backward()]
     main_launches = phase_main(smi)
     window_launches = phase_main(smi, dcn_window=WINDOW)
+    train_launches = phase_train(smi)
     kernels[0]["launches"] = main_launches["correlation"]
     kernels[1]["launches"] = window_launches["deform_conv_windowed"]
+    kernels[2]["launches"] = train_launches["correlation_backward"]
     phase_small()
     phase_small(dcn_window=WINDOW)
+    phase_small_train()
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -24,6 +24,7 @@ from vps_tpu.models.detectors import empty_track_state as j_empty_track_state
 from vps_tpu.utils.convert import convert_detector
 
 from test_full_graph_parity import _merge, build_sd
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 from vps_torch import zoo
 from vps_torch.convert import state_dict_from_jax
@@ -184,10 +185,17 @@ def test_predict_video_resets():
 
 def test_port_imports_no_jax():
     """vps_torch and chip_smoke.py import nothing of jax, flax, optax or
-    vps_tpu (static check over every module's import statements)."""
+    vps_tpu (static check over every module's import statements), the
+    training modules included."""
     banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    names = {p.relative_to(REPO).as_posix() for p in files}
+    training = {f"vps_torch/{m}.py" for m in (
+        "core/assigner", "core/sampler", "core/targets", "ops/losses",
+        "ops/mask", "train/optim", "train/step", "train/runner",
+        "utils/checkpoint")}
+    assert training <= names, training - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

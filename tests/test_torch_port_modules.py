@@ -34,6 +34,8 @@ from vps_tpu.models.rpn_head import rpn_proposals as j_rpn_proposals
 from vps_tpu.models.track_head import TrackHead as JTrackHead
 from vps_tpu.ops.anchors import AnchorGenerator as JAnchorGenerator
 
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
+
 from vps_torch.convert import state_dict_from_jax
 from vps_torch.models.bbox_head import SharedFCBBoxHead
 from vps_torch.models.bfp_tcea import BFPTcea

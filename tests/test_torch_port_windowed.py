@@ -12,6 +12,7 @@ init of the detector costs minutes).
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from vps_tpu import zoo as jzoo
@@ -21,6 +22,7 @@ from vps_tpu.utils.convert import convert_detector
 
 from test_full_graph_parity import _merge, build_sd
 from test_torch_port_fusetrack import CAP, H, W, _cfgs, _fill, assert_frame_matches
+from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 from vps_torch import zoo
 from vps_torch.convert import state_dict_from_jax

@@ -1,10 +1,10 @@
-"""PyTorch + CUDA port of vps_tpu's FuseTrack video inference for one
-NVIDIA H100.
+"""PyTorch + CUDA port of vps_tpu's FuseTrack, video inference and
+training, for one NVIDIA H100.
 
 Layout mirrors ``vps_tpu`` (``ops/``, ``models/``, ``models/flow/``,
-``models/detectors/``) so every module has a counterpart under the same
-name; hand-written Hopper kernels live in ``csrc/``. The package imports
-torch, numpy and the standard library only.
+``models/detectors/``, ``core/``, ``train/``, ``utils/``) so every module has
+a counterpart under the same name; hand-written Hopper kernels live in
+``csrc/``. The package imports torch, numpy and the standard library only.
 """
 
 from __future__ import annotations

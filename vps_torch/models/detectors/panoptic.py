@@ -1,14 +1,17 @@
-"""PanopticFuseTrack video inference (port of
-vps_tpu/models/detectors/panoptic.py: PanopticFuseTrack.predict and
-predict_video).
+"""PanopticFuseTrack (port of vps_tpu/models/detectors/panoptic.py:
+PanopticFuseTrack.loss, _panoptic_train_loss, predict and predict_video).
 
 Same per-frame contract as the JAX detector: ``predict`` takes a (1, H, W, 3)
 normalised float frame, its reference frame and the TrackState, and returns
 the same output dict with the same fixed capacities and validity masks
-(proposals max_num, det max_det, track memory) plus the new TrackState.
-Submodule names are the mmdet state_dict prefixes (``backbone``, ``neck``,
-``extra_neck``, ``rpn_head``, ``bbox_head``, ``mask_head``, ``panopticFPN``,
-``track_head``, ``flownet2``). Inference only: no autograd anywhere.
+(proposals max_num, det max_det, track memory) plus the new TrackState; it
+runs under ``inference_mode``. ``loss`` takes one training sample with its
+padded gt and returns the same loss dict as JAX's ``loss``; the sampler's
+draws come from the ``torch.Generator`` it is given. Submodule names are the
+mmdet state_dict prefixes (``backbone``, ``neck``, ``extra_neck``,
+``rpn_head``, ``bbox_head``, ``mask_head``, ``panopticFPN``, ``track_head``,
+``flownet2``). Every parameter trains except FlowNet2's and, for
+``frozen_stages = s``, the backbone's stem and stages 1..s.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vps_torch import resolve_device
+from vps_torch.core.targets import anchor_target, proposal_target
 from vps_torch.models.bbox_head import SharedFCBBoxHead
 from vps_torch.models.bfp_tcea import BFPTcea
 from vps_torch.models.detectors.panoptic_ops import (
     TrackState,
+    _paste_logit_window,
+    _seg_window,
     mask_removal_and_fuse,
     panoptic_dets,
     track_assign,
@@ -41,9 +47,19 @@ from vps_torch.models.mask_head import FCNMaskHead
 from vps_torch.models.panoptic_fpn import UPSNetFPN
 from vps_torch.models.resnet import Bottleneck, ResNet
 from vps_torch.models.rpn_head import RPNHead, rpn_proposals
-from vps_torch.models.track_head import TrackHead, compute_comp_scores
+from vps_torch.models.track_head import (
+    TrackHead,
+    compute_comp_scores,
+    track_match_loss,
+)
 from vps_torch.ops.anchors import AnchorGenerator
 from vps_torch.ops.box import bbox_overlaps
+from vps_torch.ops.losses import (
+    accuracy,
+    binary_cross_entropy_with_logits,
+    smooth_l1_loss,
+    softmax_cross_entropy,
+)
 from vps_torch.ops.roi_align import multilevel_roi_align
 
 IMG_MEAN = np.asarray([123.675, 116.28, 103.53], np.float32)
@@ -71,6 +87,7 @@ class PanopticFuseTrack(nn.Module):
                  mask_head: Dict[str, Any], panoptic: Dict[str, Any],
                  extra_neck: Dict[str, Any], track_head: Dict[str, Any],
                  test_cfg: Dict[str, Any],
+                 train_cfg: Optional[Dict[str, Any]] = None,
                  bbox_roi_extractor: Optional[Dict[str, Any]] = None,
                  mask_roi_extractor: Optional[Dict[str, Any]] = None,
                  flow: Optional[Dict[str, Any]] = None,
@@ -78,11 +95,13 @@ class PanopticFuseTrack(nn.Module):
         super().__init__()
         dev = resolve_device(device)
         self.test_cfg = test_cfg
+        self.train_cfg = train_cfg
         self.flow_input_scale = flow_input_scale
         bdt = compute_dtype(backbone.get("compute_dtype"))
         self.backbone = ResNet(backbone.get("depth", 50),
                                backbone.get("num_stages", 4),
                                backbone.get("out_indices", (0, 1, 2, 3)),
+                               frozen_stages=backbone.get("frozen_stages", -1),
                                dtype=bdt, device=dev)
         self.neck = FPN(neck.get("in_channels", (256, 512, 1024, 2048)),
                         neck.get("out_channels", 256),
@@ -112,6 +131,9 @@ class PanopticFuseTrack(nn.Module):
             bbox_head.get("fc_out_channels", 1024),
             bbox_head.get("roi_feat_size", 7), bbox_head.get("num_classes", 9),
             bbox_head.get("reg_class_agnostic", False), device=dev)
+        self.bbox_target_means = tuple(bbox_head.get("target_means", (0.0,) * 4))
+        self.bbox_target_stds = tuple(bbox_head.get("target_stds",
+                                                    (0.1, 0.1, 0.2, 0.2)))
         self.mask_head = FCNMaskHead(
             mask_head.get("num_convs", 4), mask_head.get("in_channels", 256),
             mask_head.get("conv_out_channels", 256),
@@ -132,6 +154,8 @@ class PanopticFuseTrack(nn.Module):
             track_head.get("roi_feat_size", 7),
             track_head.get("fc_out_channels", 1024), device=dev)
         self.match_coeff = tuple(track_head.get("match_coeff", (1.0, 2.0, 10.0)))
+        self.loss_match_weight = float(
+            track_head.get("loss_match", {}).get("loss_weight", 1.0))
         flow = flow or {}
         if flow.get("type") == "TinyFlow":
             self.flownet2 = TinyFlowNet(device=dev)
@@ -148,8 +172,8 @@ class PanopticFuseTrack(nn.Module):
                              persistent=False)
         self.register_buffer("img_std", torch.from_numpy(IMG_STD).to(dev),
                              persistent=False)
-        self.eval()
-        self.requires_grad_(False)
+        self.eval()  # frozen BN, no dropout: training and inference alike
+        self.flownet2.requires_grad_(False)
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -174,7 +198,8 @@ class PanopticFuseTrack(nn.Module):
         else:
             fh, fw = h, w
         pad = (0, 0, 0, (-fw) % 64, 0, (-fh) % 64)
-        flow = self.flownet2(F.pad(rgb, pad), F.pad(ref_rgb, pad))
+        with torch.no_grad():  # JAX's stop_gradient: FlowNet2 is frozen data
+            flow = self.flownet2(F.pad(rgb, pad), F.pad(ref_rgb, pad))
         flow = flow[:, :fh, :fw, :]
         if scale_factor != fis:
             oh, ow = int(round(h * scale_factor)), int(round(w * scale_factor))
@@ -211,6 +236,152 @@ class PanopticFuseTrack(nn.Module):
             flow = self.compute_flow(img, ref_img, 0.25)
         with _stage("fuse_neck"):
             return self.extra_neck(x, ref_x, flow), ref_x, x
+
+    # ------------------------------------------------------------------
+    # training, one sample (panoptic_fusetrack.py:147-353)
+    # ------------------------------------------------------------------
+
+    def loss(self, img, ref_img, gt_bboxes, gt_labels, gt_valid, gt_masks,
+             gt_semantic_seg, gt_semantic_seg_Nx, gt_pids, ref_bboxes,
+             ref_valid, generator: Optional[torch.Generator] = None):
+        """Loss terms of one sample. img, ref_img (1, H, W, 3); gt_* padded
+        to G boxes with ``gt_valid``; gt_masks (G, H, W); gt_semantic_seg
+        (1, H, W) and gt_semantic_seg_Nx (1, H/4, W/4) int, 255 ignored;
+        ref_bboxes / ref_valid the reference frame's boxes. Returns a dict of
+        scalars: the ``loss_*`` terms and the ``acc`` / ``match_acc``
+        metrics."""
+        losses = {}
+        tc = self.train_cfg
+        h, w = img.shape[1:3]
+        x, ref_x, _ = self._fused_feats(img, ref_img)
+
+        with _stage("semantic_head"):
+            fcn_output, fcn_score = self.panopticFPN(
+                list(x[:self.panopticFPN.num_levels]))
+            losses["loss_segm"] = softmax_cross_entropy(
+                _nhwc(fcn_output), gt_semantic_seg, ignore_index=255)
+
+        with _stage("rpn"):
+            cls_outs, reg_outs = self.rpn_head(x)
+            anchors = self._anchors_for(cls_outs)
+            flat_anchors = torch.cat(anchors, 0)
+            at = anchor_target(
+                generator, flat_anchors,
+                torch.ones(flat_anchors.shape[0], dtype=torch.bool,
+                           device=self.device),
+                gt_bboxes, gt_valid, (h, w), tc["rpn"])
+            flat_cls = torch.cat([c[0].permute(1, 2, 0).reshape(-1)
+                                  for c in cls_outs])
+            flat_reg = torch.cat([r[0].permute(1, 2, 0).reshape(-1, 4)
+                                  for r in reg_outs])
+            num_total = (at.num_pos + at.num_neg).clamp(min=1).float()
+            losses["loss_rpn_cls"] = binary_cross_entropy_with_logits(
+                flat_cls, at.labels.float(), weight=at.label_weights,
+                avg_factor=num_total)
+            losses["loss_rpn_bbox"] = smooth_l1_loss(
+                flat_reg, at.bbox_targets, beta=1.0 / 9.0,
+                weight=at.bbox_weights, avg_factor=num_total)
+
+            # proposals are data: no gradient through their selection
+            pcfg = tc.get("rpn_proposal", {})
+            with torch.no_grad():
+                proposals, _, prop_valid = rpn_proposals(
+                    [c[0].permute(1, 2, 0) for c in cls_outs],
+                    [r[0].permute(1, 2, 0) for r in reg_outs], anchors, (h, w),
+                    nms_pre=pcfg.get("nms_pre", 2000),
+                    nms_thr=pcfg.get("nms_thr", 0.7),
+                    max_num=pcfg.get("max_num", 2000))
+        with _stage("proposal_targets"):
+            st = proposal_target(
+                generator, proposals, prop_valid, gt_bboxes, gt_labels,
+                gt_valid, tc["rcnn"], gt_pids=gt_pids, gt_masks=gt_masks,
+                target_means=self.bbox_target_means,
+                target_stds=self.bbox_target_stds)
+
+        with _stage("bbox_head"):
+            bbox_feats = self._roi_feats(x, st.rois, 7, valid=st.valid)
+            cls_score, bbox_pred = self.bbox_head(bbox_feats)
+            avg_cls = st.label_weights.sum().clamp(min=1.0)
+            losses["loss_cls"] = softmax_cross_entropy(
+                cls_score, st.labels, weight=st.label_weights,
+                avg_factor=avg_cls)
+            losses["acc"] = accuracy(cls_score, st.labels, valid=st.valid)
+            num = st.rois.shape[0]
+            pred_by_label = bbox_pred.reshape(num, -1, 4).gather(
+                1, st.labels[:, None, None].expand(-1, 1, 4))[:, 0]
+            losses["loss_bbox"] = smooth_l1_loss(
+                pred_by_label, st.bbox_targets, beta=1.0,
+                weight=st.bbox_weights, avg_factor=float(num))
+
+        with _stage("track"):
+            ref_roi_feats = self._roi_feats(ref_x, ref_bboxes, 7,
+                                            valid=ref_valid)
+            match_logits = self.track_head(bbox_feats, ref_roi_feats, ref_valid)
+            id_w = st.id_weights * st.valid  # invalid rows weigh 0
+            loss_match, match_acc = track_match_loss(match_logits, st.ids, id_w)
+            # the reference's normalisation: weighted-CE mean over ALL rows
+            loss_match = loss_match * id_w.sum() / float(num)
+            losses["loss_match"] = self.loss_match_weight * loss_match
+            losses["match_acc"] = match_acc
+
+        with _stage("mask_head"):  # on the positive prefix
+            n_pos_max = st.mask_targets.shape[0]
+            pos_mask = st.pos_mask[:n_pos_max]
+            mask_pred = self.mask_head(self._roi_feats(
+                x, st.rois[:n_pos_max], 14, valid=pos_mask))
+            pred_slice = mask_pred.gather(
+                1, st.labels[:n_pos_max, None, None, None]
+                .expand(-1, 1, *mask_pred.shape[2:]))[:, 0]
+            num_pos = pos_mask.sum().clamp(min=1)
+            losses["loss_mask"] = binary_cross_entropy_with_logits(
+                pred_slice, st.mask_targets,
+                weight=pos_mask[:, None, None].float(),
+                avg_factor=num_pos * 28.0 * 28.0)
+
+        if tc.get("loss_pano_weight") is not None:
+            with _stage("panoptic_loss"):
+                losses["loss_pano"] = self._panoptic_train_loss(
+                    x, fcn_score, gt_bboxes, gt_labels, gt_valid, gt_masks,
+                    gt_semantic_seg_Nx) * tc["loss_pano_weight"]
+        return losses
+
+    def _panoptic_train_loss(self, x, fcn_score, gt_bboxes, gt_labels,
+                             gt_valid, gt_masks, gt_semantic_seg_Nx):
+        """Panoptic logits of the gt boxes (stuff logits + each instance's
+        pasted mask logits plus its class's semantic logit in its box),
+        MaskMatching targets and cross entropy, 255 ignored
+        (panoptic_fusetrack.py:315-351, unary_logits.py:160-195)."""
+        num_stuff = self.panopticFPN.num_stuff_classes
+        g = gt_bboxes.shape[0]
+        mask_score = self.mask_head(self._roi_feats(x, gt_bboxes, 14,
+                                                    valid=gt_valid))
+        labels = gt_labels.long()
+        mask_score = mask_score.gather(1, labels[:, None, None, None].expand(
+            -1, 1, *mask_score.shape[2:]))[:, 0]
+        seg = fcn_score[0]  # (K, h, w) at 1/4
+        hh, ww = seg.shape[1:]
+        boxes4 = gt_bboxes * 0.25
+        vals, _ = _paste_logit_window(mask_score, boxes4, (hh, ww))
+        seg_win = _seg_window(boxes4, (hh, ww)) & (labels > 0)[:, None, None]
+        mapped = (num_stuff - 1 + labels).clamp(0, seg.shape[0] - 1)
+        term = torch.where(seg_win, seg[mapped], torch.zeros_like(vals)) + vals
+        inst_logits = torch.where(gt_valid[:, None, None], term,
+                                  torch.full_like(term, -1e9))
+        panoptic_logits = torch.cat([seg[:num_stuff], inst_logits], 0)
+
+        # MaskMatching: stuff from the gt seg, instance pixels -> num_stuff + i
+        # (later instances overwrite), everything else 255
+        gt_seg = gt_semantic_seg_Nx[0].long()
+        matched = torch.where((gt_seg <= num_stuff - 1) | (gt_seg >= 255),
+                              gt_seg, torch.full_like(gt_seg, -1))
+        masks4 = gt_masks[:, ::4, ::4]
+        inst = (masks4 != 0) & (masks4 != 255) & gt_valid[:, None, None]
+        last = g - 1 - inst.flip(0).int().argmax(0)
+        matched = torch.where(inst.any(0), last + num_stuff, matched)
+        matched = torch.where(matched == -1, torch.full_like(matched, 255),
+                              matched)
+        return softmax_cross_entropy(panoptic_logits.permute(1, 2, 0)[None],
+                                     matched[None], ignore_index=255)
 
     # ------------------------------------------------------------------
     # inference, one frame

@@ -1,7 +1,8 @@
 """ResNet backbone (port of vps_tpu/models/resnet.py): mmdet ResNet, pytorch
 style (stride on the 3x3 conv), BatchNorm frozen, NCHW. Parameter names are
 the mmdet state_dict names (``layer1.0.conv1.weight``, ``downsample.0``...).
-Inference only, so ``frozen_stages`` has nothing to freeze here."""
+``frozen_stages = s`` freezes the stem and stages 1..s (requires_grad off),
+which is what JAX's stop_gradient after them does to the training step."""
 
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ class ResNet(nn.Module):
     """7x7/2 stem + 3x3/2 max pool + 4 stages; returns C2..C5 (NCHW)."""
 
     def __init__(self, depth: int = 50, num_stages: int = 4,
-                 out_indices=(0, 1, 2, 3),
+                 out_indices=(0, 1, 2, 3), frozen_stages: int = -1,
                  dtype: Optional[torch.dtype] = None, device=None):
         super().__init__()
         kind, stage_blocks = ARCH_SETTINGS[depth]
@@ -102,6 +103,10 @@ class ResNet(nn.Module):
                 inplanes = planes * block_cls.expansion
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
             planes *= 2
+        if frozen_stages >= 0:
+            for m in [self.conv1, self.bn1] + [getattr(self, f"layer{i}")
+                                               for i in range(1, frozen_stages + 1)]:
+                m.requires_grad_(False)
 
     def forward(self, x):
         x = F.relu(self.bn1(self.conv1(x)))

@@ -1,7 +1,7 @@
 """Track head (port of vps_tpu/models/track_head.py): shared FCs on
 flattened ROI features of the current and reference frame, a dot-product
 match matrix with a prepended all-zero "new object" column, and the
-comprehensive matching score."""
+comprehensive matching score; ``track_match_loss`` for training."""
 
 from __future__ import annotations
 
@@ -55,3 +55,16 @@ def compute_comp_scores(match_ll, bbox_scores, bbox_ious, label_delta,
             + match_coeff[0] * torch.log(bbox_scores.clamp(min=1e-12))
             + match_coeff[1] * bbox_ious
             + match_coeff[2] * label_delta)
+
+
+def track_match_loss(match_logits, ids, id_weights):
+    """track_head.py:135-174: weighted cross entropy over the match columns,
+    and the match accuracy. match_logits (N, M+1); ids (N,) target column
+    (0 = new object); id_weights (N,) {0, 1}, 0 for padded rows."""
+    logp = F.log_softmax(match_logits, dim=-1)
+    n_valid = id_weights.sum().clamp(min=1.0)
+    ids_safe = ids.long().clamp(0, match_logits.shape[1] - 1)
+    ll = logp.gather(1, ids_safe[:, None])[:, 0]
+    loss = -(ll * id_weights).sum() / n_valid
+    acc = ((match_logits.argmax(-1) == ids).float() * id_weights).sum() / n_valid
+    return loss, acc

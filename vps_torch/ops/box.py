@@ -9,6 +9,26 @@ import math
 import torch
 
 
+def bbox2delta(proposals, gt, means=(0.0, 0.0, 0.0, 0.0),
+               stds=(1.0, 1.0, 1.0, 1.0)):
+    """Encode gt boxes relative to proposals, (..., 4) -> (..., 4) f32."""
+    proposals = proposals.float()
+    gt = gt.float()
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0] + 1.0
+    ph = proposals[..., 3] - proposals[..., 1] + 1.0
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1.0
+    gh = gt[..., 3] - gt[..., 1] + 1.0
+    deltas = torch.stack([(gx - px) / pw, (gy - py) / ph,
+                          torch.log(gw / pw), torch.log(gh / ph)], dim=-1)
+    means = torch.tensor(means, dtype=torch.float32, device=deltas.device)
+    stds = torch.tensor(stds, dtype=torch.float32, device=deltas.device)
+    return (deltas - means) / stds
+
+
 def delta2bbox(rois, deltas, max_shape=None):
     """rois (N, 4), deltas (N, 4K) -> boxes (N, 4K). The RPN's target means
     and stds are 0 and 1, so deltas are used as they are."""

@@ -14,8 +14,16 @@ Routes on the card, by dtype:
     segment walks all D displacement rows with its f1 segment in registers
     (staged with each f2 row instead where C > 256) and the f2 rows streamed
     in by cp.async.
-  * float32 (the ``exact`` preset): a SIMT kernel with f32 products, since
-    the tensor cores would round its inputs to TF32.
+  * float32 (the ``exact`` preset and training): a SIMT kernel with f32
+    products, since the tensor cores would round its inputs to TF32.
+
+When a gradient is needed (training: LiteFlowNetCorr's inputs are trained
+features), ``correlation`` runs inside ``_Correlation``, a
+``torch.autograd.Function`` whose backward is a second kernel,
+``correlation_backward``: both input gradients as gathers, f32 sums, f32 or
+bf16 in and out. Without a gradient (inference, FlowNetC under no_grad)
+autograd is bypassed. On the CPU the plain version runs, and autograd goes
+through it (``correlation_backward_reference``).
 """
 
 from __future__ import annotations
@@ -54,18 +62,31 @@ def correlation_reference(f1, f2, max_displacement: int, stride2: int = 1):
     return torch.stack(outs, dim=-1).to(f1.dtype)
 
 
+def correlation_backward_reference(g, f1, f2, max_displacement: int,
+                                   stride2: int = 1):
+    """Plain backward: autograd through ``correlation_reference`` (f32
+    products and sums, gradients cast to the input dtype). Returns
+    (grad_f1, grad_f2)."""
+    a = f1.detach().requires_grad_(True)
+    b = f2.detach().requires_grad_(True)
+    with torch.enable_grad():
+        out = correlation_reference(a, b, max_displacement, stride2)
+        return torch.autograd.grad(out, (a, b), g)
+
+
 def _lib():
     lib = cuda_build.load("correlation.cu")
     fn = lib.vps_correlation_forward
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        bwd = lib.vps_correlation_backward
+        bwd.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        bwd.restype = ctypes.c_int
     return lib
 
 
-def correlation(f1, f2, max_displacement: int, stride2: int = 1):
-    """Cost volume. CUDA tensors go through the kernel (or raise); CPU
-    tensors through ``correlation_reference``."""
+def _check(f1, f2, max_displacement, stride2):
     if f1.shape != f2.shape or f1.dim() != 4:
         raise ValueError(f"correlation: f1 {tuple(f1.shape)} and f2 "
                          f"{tuple(f2.shape)} must be equal (B, H, W, C)")
@@ -76,18 +97,26 @@ def correlation(f1, f2, max_displacement: int, stride2: int = 1):
         raise ValueError("correlation: f1 and f2 on different devices")
     if max_displacement < 0 or stride2 < 1:
         raise ValueError("correlation: need max_displacement >= 0, stride2 >= 1")
-    if f1.device.type == "cpu":
-        return correlation_reference(f1, f2, max_displacement, stride2)
+
+
+def _check_kernel(f1, f2, max_displacement, stride2):
+    """What the CUDA kernels take (raises on anything else)."""
     if f1.device.type != "cuda":
         raise ValueError(f"correlation: unsupported device {f1.device}")
     if not (f1.is_contiguous() and f2.is_contiguous()):
         raise ValueError("correlation: the kernel takes contiguous NHWC tensors")
-    b, h, w, c = f1.shape
     steps = _steps(max_displacement, stride2)
     if steps > MAX_STEPS or max_displacement > 96:
         raise ValueError(f"correlation: {steps} displacement steps per axis "
                          f"(md {max_displacement}) exceed the kernel's "
                          f"{MAX_STEPS} / md 96")
+
+
+def _forward(f1, f2, max_displacement, stride2):
+    """The forward kernel on checked CUDA tensors."""
+    _check_kernel(f1, f2, max_displacement, stride2)
+    b, h, w, c = f1.shape
+    steps = _steps(max_displacement, stride2)
     bf16 = f1.dtype == torch.bfloat16
     if h > 65535 or b * (1 if bf16 else steps) > 65535:
         raise ValueError("correlation: grid too large (H or B*steps > 65535)")
@@ -104,4 +133,67 @@ def correlation(f1, f2, max_displacement: int, stride2: int = 1):
     return out
 
 
-correlation.launches = 0  # kernel launches (CUDA path only)
+class _Correlation(torch.autograd.Function):
+    """Forward: the forward kernel. Backward: ``correlation_backward``, the
+    backward kernel (JAX's ``_correlation_bwd``, the VJP of
+    ``_correlation_xla``)."""
+
+    @staticmethod
+    def forward(ctx, f1, f2, max_displacement, stride2):
+        ctx.save_for_backward(f1, f2)
+        ctx.conf = (max_displacement, stride2)
+        return _forward(f1, f2, max_displacement, stride2)
+
+    @staticmethod
+    def backward(ctx, g):
+        f1, f2 = ctx.saved_tensors
+        gf1, gf2 = correlation_backward(g.contiguous(), f1, f2, *ctx.conf)
+        need1, need2 = ctx.needs_input_grad[:2]
+        return (gf1 if need1 else None), (gf2 if need2 else None), None, None
+
+
+def correlation(f1, f2, max_displacement: int, stride2: int = 1):
+    """Cost volume. CUDA tensors go through the kernel (or raise), inside
+    ``_Correlation`` when a gradient is needed; CPU tensors through
+    ``correlation_reference``, which autograd differentiates."""
+    _check(f1, f2, max_displacement, stride2)
+    if f1.device.type == "cpu":
+        return correlation_reference(f1, f2, max_displacement, stride2)
+    if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
+        return _Correlation.apply(f1, f2, max_displacement, stride2)
+    return _forward(f1, f2, max_displacement, stride2)
+
+
+def correlation_backward(g, f1, f2, max_displacement: int, stride2: int = 1):
+    """(grad_f1, grad_f2) of ``correlation`` for the output gradient g
+    (B, H, W, D^2) in the inputs' dtype. CUDA tensors go through the backward
+    kernel (or raise); CPU tensors through
+    ``correlation_backward_reference``."""
+    _check(f1, f2, max_displacement, stride2)
+    b, h, w, c = f1.shape
+    d2 = _steps(max_displacement, stride2) ** 2
+    if tuple(g.shape) != (b, h, w, d2) or g.dtype != f1.dtype:
+        raise ValueError(f"correlation_backward: g {tuple(g.shape)} {g.dtype}"
+                         f", need {(b, h, w, d2)} {f1.dtype}")
+    if f1.device.type == "cpu":
+        return correlation_backward_reference(g, f1, f2, max_displacement,
+                                              stride2)
+    _check_kernel(f1, f2, max_displacement, stride2)
+    if g.device != f1.device or not g.is_contiguous():
+        raise ValueError("correlation_backward: g must be a contiguous "
+                         "tensor on the inputs' device")
+    lib = _lib()
+    gf1 = torch.empty_like(f1)
+    gf2 = torch.empty_like(f2)
+    with cuda_build.on_device(f1.device):
+        rc = lib.vps_correlation_backward(
+            g.data_ptr(), f1.data_ptr(), f2.data_ptr(), gf1.data_ptr(),
+            gf2.data_ptr(), b, h, w, c, max_displacement, stride2,
+            int(f1.dtype == torch.bfloat16), cuda_build.stream_ptr(f1.device))
+    cuda_build.check(lib, rc, "correlation backward kernel launch")
+    correlation_backward.launches += 1
+    return gf1, gf2
+
+
+correlation.launches = 0  # forward kernel launches (CUDA path only)
+correlation_backward.launches = 0  # backward kernel launches (CUDA path only)

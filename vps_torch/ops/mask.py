@@ -1,0 +1,58 @@
+"""Mask cropping for training targets (port of vps_tpu/ops/mask.py:
+``crop_and_resize_indexed`` and ``_bilinear_2d``), plain PyTorch: one flat
+gather per corner, never materialising the gathered (R, H, W) stack."""
+
+from __future__ import annotations
+
+import torch
+
+
+def _mix4(flat, base, w, y0, x0, y1, x1, wy, wx):
+    """Bilinear mix of the four corners (y0|y1, x0|x1) of flat[base + ...],
+    in the JAX operation order."""
+    def g4(yi, xi):
+        return flat[base + yi.long() * w + xi.long()]
+
+    top = g4(y0, x0) * (1 - wx) + g4(y0, x1) * wx
+    bot = g4(y1, x0) * (1 - wx) + g4(y1, x1) * wx
+    return top * (1 - wy) + bot * wy
+
+
+def _corners(yy, xx, h, w):
+    x0 = torch.floor(xx).clamp(0, w - 1)
+    y0 = torch.floor(yy).clamp(0, h - 1)
+    x1 = (x0 + 1).clamp(0, w - 1)
+    y1 = (y0 + 1).clamp(0, h - 1)
+    wx = (xx - x0).clamp(0.0, 1.0)
+    wy = (yy - y0).clamp(0.0, 1.0)
+    return y0, x0, y1, x1, wy, wx
+
+
+def crop_and_resize_indexed(mask_stack, mask_idx, boxes, out_size: int):
+    """Crop ``mask_stack[mask_idx[r]]`` to ``boxes[r]`` and resize it to
+    (out_size, out_size) by bilinear sampling at the centres of an out_size
+    grid spanning the box (border clamp).
+
+    mask_stack: (G, H, W); mask_idx: (R,) int; boxes: (R, 4) image coords.
+    Returns (R, out_size, out_size) float32."""
+    _, h, w = mask_stack.shape
+    r = boxes.shape[0]
+    dev = boxes.device
+    x1, y1, x2, y2 = boxes.float().unbind(-1)
+    bw = (x2 - x1 + 1.0).clamp(min=1.0)
+    bh = (y2 - y1 + 1.0).clamp(min=1.0)
+    grid = (torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5) / out_size
+    ys = y1[:, None] + grid[None, :] * bh[:, None] - 0.5  # (R, o)
+    xs = x1[:, None] + grid[None, :] * bw[:, None] - 0.5
+    yy = ys[:, :, None].expand(r, out_size, out_size)
+    xx = xs[:, None, :].expand(r, out_size, out_size)
+    base = (mask_idx.long() * (h * w))[:, None, None]
+    flat = mask_stack.reshape(-1).float()
+    return _mix4(flat, base, w, *_corners(yy, xx, h, w))
+
+
+def _bilinear_2d(img, y, x):
+    """Bilinear sample of a single-channel (H, W) map at float coords,
+    border clamp."""
+    h, w = img.shape
+    return _mix4(img.reshape(-1), 0, w, *_corners(y, x, h, w))

@@ -17,6 +17,12 @@ profiler links a kernel to a named range only through an op: the stage sums
 leave them out, so they are listed on their own (correlation belongs to
 flownet2 and fuse_neck, the windowed DCN to semantic_head). Needs a card;
 TF32 is off, as in chip_smoke.py.
+
+``train_step`` does the same for one training step of a model the caller
+built (chip_smoke.py's train phase calls it): the step split into forward,
+backward and optimizer on the host clock, then one profiled step, read by
+the named ranges of ``PanopticFuseTrack.loss`` (TRAIN_STAGES), the backward
+(the autograd engine's ops) and the optimizer.
 """
 
 from __future__ import annotations
@@ -38,8 +44,14 @@ from vps_torch.models.detectors import (
 
 STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
           "bbox_dets", "track", "mask_fusion")
+# the named ranges of PanopticFuseTrack.loss, then the two stages that
+# train_step adds around the backward and the optimizer's update
+TRAIN_STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
+                "proposal_targets", "bbox_head", "track", "mask_head",
+                "panoptic_loss", "backward", "optimizer")
 # name parts of the kernels in vps_torch/csrc
-PORT_KERNELS = ("corr_bf16_tc", "corr_f32", "dcw_fused", "dcw_mix", "sum_parts")
+PORT_KERNELS = ("corr_bf16_tc", "corr_f32", "corr_backward", "dcw_fused",
+                "dcw_mix", "sum_parts")
 
 
 def _kernel_us(evt) -> float:
@@ -47,6 +59,86 @@ def _kernel_us(evt) -> float:
     descendants."""
     return (sum(k.duration for k in evt.kernels)
             + sum(_kernel_us(c) for c in evt.cpu_children))
+
+
+def _device_kernels(events, names):
+    """Summed device time (us) per kernel name, the named ranges left out
+    (their device-side copies would count twice)."""
+    kernels = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in names:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return kernels
+
+
+def _summary(events, kernels, stages, n, unit, prefix="", top=20):
+    """Per-stage kernel and host ms, the port's kernels, the host syncs and
+    the ``top`` kernels, each per ``unit`` (n of them in the profile)."""
+    per = 1e3 * n  # us -> ms per unit
+    for name in stages:
+        ranges = [e for e in events if e.name == name
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        if ranges:
+            print(f"{prefix}stage {name:16s} kernels "
+                  f"{sum(map(_kernel_us, ranges)) / per:8.2f} ms  host "
+                  f"{sum(e.cpu_time_total for e in ranges) / per:8.2f} ms per {unit}")
+    for name, us in sorted(kernels.items()):
+        if any(part in name for part in PORT_KERNELS):
+            count = sum(1 for e in events if e.name == name
+                        and e.device_type == torch.autograd.DeviceType.CUDA)
+            print(f"{prefix}port kernel {us / per:8.4f} ms/{unit}  {count / n:g} "
+                  f"launches/{unit}  {name[:80]}")
+    syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+    print(f"{prefix}host syncs (item/bool/int of a device tensor): "
+          f"{syncs / n:g} per {unit}")
+    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"{prefix}kernel {us / per:8.2f} ms/{unit}  {name[:100]}")
+
+
+def train_step(det, batch, optimizer, generator, prefix="train: ") -> None:
+    """Two training steps of ``det`` on ``batch`` (a batch as the Runner's
+    loaders yield it) with ``optimizer`` (vps_torch.train.optim): one split
+    into forward (the loss), backward and optimizer on the host clock, each
+    part ending in a synchronize; one under torch.profiler, printed as
+    device busy (summed kernel time over the step's wall time, the
+    profiler's overhead included), per-stage times, the port's kernels and
+    the top kernels. The backward's kernels are those under the autograd
+    engine's ops; the port's own kernels show only in their own lines."""
+    from vps_torch.train.step import make_loss_fn
+
+    loss_fn = make_loss_fn(det)
+    rec = torch.profiler.record_function
+
+    def step():
+        t = [time.perf_counter()]
+        total, _ = loss_fn(batch, generator)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        with rec("backward"):
+            total.backward()
+            torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        with rec("optimizer"):
+            optimizer.step()
+            torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return np.diff(t)
+
+    fwd, bwd, opt = step()
+    print(f"{prefix}one more step, split: forward (loss) {fwd:.4f}s, backward "
+          f"{bwd:.4f}s, optimizer {opt:.4f}s")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_s = float(sum(step()))
+    events = prof.events()
+    kernels = _device_kernels(events, TRAIN_STAGES)
+    backward_us = sum(_kernel_us(e) for e in events
+                      if e.name.startswith("autograd::engine::evaluate_function")
+                      and e.device_type == torch.autograd.DeviceType.CPU)
+    print(f"{prefix}one more step under torch.profiler: wall {wall_s:.4f}s, "
+          f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
+          f"{sum(kernels.values()) / (wall_s * 1e6):.3f}; backward kernels "
+          f"(autograd engine) {backward_us / 1e3:.1f} ms")
+    _summary(events, kernels, TRAIN_STAGES, 1, "step", prefix, top=8)
 
 
 def main(argv=None) -> None:
@@ -89,34 +181,13 @@ def main(argv=None) -> None:
         carry = run(2 + args.frames, n, carry)
         wall_s = time.perf_counter() - t0
     events = prof.events()
-    kernels = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in STAGES:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
+    kernels = _device_kernels(events, STAGES)
     busy = sum(kernels.values()) / (wall_s * 1e6)
-    per = 1e3 * args.frames  # us -> ms per frame
     print(f"frame (dcn_window={args.dcn_window}): {plain_s * 1e3:.1f} ms "
           f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
           f"device busy {busy:.3f} of the profiled window ({args.frames} "
           f"frames, {h}x{w})")
-    for name in STAGES:
-        ranges = [e for e in events if e.name == name
-                  and e.device_type == torch.autograd.DeviceType.CPU]
-        if ranges:
-            print(f"stage {name:14s} kernels {sum(map(_kernel_us, ranges)) / per:8.2f}"
-                  f" ms  host {sum(e.cpu_time_total for e in ranges) / per:8.2f}"
-                  f" ms per frame")
-    for name, us in sorted(kernels.items()):
-        if any(part in name for part in PORT_KERNELS):
-            count = sum(1 for e in events if e.name == name
-                        and e.device_type == torch.autograd.DeviceType.CUDA)
-            print(f"port kernel {us / per:8.4f} ms/frame  {count / args.frames:g} "
-                  f"launches/frame  {name[:80]}")
-    syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
-    print(f"host syncs (item/bool/int of a device tensor): "
-          f"{syncs / args.frames:g} per frame")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:20]:
-        print(f"kernel {us / per:8.2f} ms/frame  {name[:100]}")
+    _summary(events, kernels, STAGES, args.frames, "frame")
 
 
 if __name__ == "__main__":

@@ -49,6 +49,28 @@ def fusetrack_model_cfg(depth: int = 50) -> Dict[str, Any]:
     )
 
 
+def fusetrack_train_cfg() -> Dict[str, Any]:
+    return dict(
+        rpn=dict(
+            assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.7,
+                          neg_iou_thr=0.3, min_pos_iou=0.3, ignore_iof_thr=-1),
+            sampler=dict(type="RandomSampler", num=256, pos_fraction=0.5,
+                         neg_pos_ub=-1, add_gt_as_proposals=False),
+            allowed_border=0, pos_weight=-1,
+        ),
+        rpn_proposal=dict(nms_across_levels=False, nms_pre=2000, nms_post=2000,
+                          max_num=2000, nms_thr=0.7, min_bbox_size=0),
+        rcnn=dict(
+            assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                          neg_iou_thr=0.5, min_pos_iou=0.5, ignore_iof_thr=-1),
+            sampler=dict(type="RandomSampler", num=512, pos_fraction=0.25,
+                         neg_pos_ub=-1, add_gt_as_proposals=True),
+            mask_size=28, pos_weight=-1,
+        ),
+        loss_pano_weight=0.5,
+    )
+
+
 def fusetrack_test_cfg() -> Dict[str, Any]:
     return dict(
         rpn=dict(nms_across_levels=False, nms_pre=1000, nms_post=1000,
@@ -75,6 +97,20 @@ def exact_overrides(cfg):
         cfg["extra_neck"]["compute_dtype"] = "float32"
     if cfg.get("panoptic"):
         cfg["panoptic"]["compute_dtype"] = "float32"
+    cfg["flow"] = dict(cfg.get("flow") or {}, compute_dtype="float32")
+    return cfg
+
+
+def f32_compute_overrides(cfg):
+    """f32 activation compute in every tower with a compute_dtype knob,
+    every other knob (flow resolution, sampling modes) as it is: the
+    training default, as in the JAX trainer (parameters are f32 either
+    way, so checkpoints serve every inference preset)."""
+    cfg = copy.deepcopy(cfg)
+    for key in ("backbone", "bbox_roi_extractor", "mask_roi_extractor",
+                "extra_neck", "panoptic"):
+        if cfg.get(key):
+            cfg[key] = dict(cfg[key], compute_dtype="float32")
     cfg["flow"] = dict(cfg.get("flow") or {}, compute_dtype="float32")
     return cfg
 
@@ -124,4 +160,14 @@ def tiny_overrides(cfg: Dict[str, Any]) -> Dict[str, Any]:
     cfg["backbone"]["depth"] = 18
     cfg["neck"]["in_channels"] = [64, 128, 256, 512]
     cfg["flow"] = dict(type="TinyFlow")
+    return cfg
+
+
+def tiny_train_cfg() -> Dict[str, Any]:
+    """``fusetrack_train_cfg`` with the samplers and proposals cut for
+    tests."""
+    cfg = fusetrack_train_cfg()
+    cfg["rpn"]["sampler"]["num"] = 64
+    cfg["rpn_proposal"].update(nms_pre=200, nms_post=200, max_num=128)
+    cfg["rcnn"]["sampler"]["num"] = 64
     return cfg
