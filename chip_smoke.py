@@ -35,18 +35,29 @@ Phases, each printing its own line of numbers:
                  with `dcn_window = 4`; then the tiny model's loss terms and
                  selection-free gradients on the card against the CPU path,
                  same weights, sampler draws and discrete choices.
+  5. dataset  -- the user's workflow from files: the synthetic Cityscapes-VPS
+                 fixture at 1024x2048 and its GT (the repo's prepare_data
+                 scripts), vps_torch.tools.train on the port's
+                 configs/cityscapes/fusetrack.py (R-50, f32, 4 steps),
+                 tools.test_vpq at half-flow and tools.eval_vpq, in this
+                 process; the train loader alone with 0 and 2 workers; fails
+                 on a non-finite loss, a skipped step, a frame without an
+                 artifact, VPQ outside [0, 100], the GT not scoring 100
+                 against itself, or a kernel that did not launch.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line, the nvidia-smi line and, last, the
 result line {"ok": true, "device": {...}}. Any failure raises: exit code
 != 0, no result.
-TF32 is off for matmuls and convolutions: float32 work runs in full float32,
-as the JAX reference computes it.
+TF32 is off for matmuls and convolutions (vps_torch.utils.numerics.f32_policy,
+printed first): float32 work runs in full float32, as the JAX reference
+computes it.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -666,6 +677,226 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
     return launches
 
 
+DATASET_CONFIG = """
+_base_ = r"{base}"
+data = dict(
+    train=dict(times=1, dataset=dict(
+        ann_file=r"{train_ann}", img_prefix=r"{train_img}",
+        ref_prefix=r"{train_img}", seg_prefix=r"{train_seg}",
+        ref_ann_file=r"{train_ann}")),
+    test=dict(ann_file=r"{val_ann}", img_prefix=r"{val_img}",
+              ref_prefix=r"{val_img}", nframes_span_test={frames}),
+)
+log_config = dict(interval=1)
+total_epochs = 1
+"""
+# the CPU rehearsal's model and pipelines: the tiny model at the frame size
+DATASET_TINY = """
+from vps_torch import zoo
+model = zoo.tiny_overrides(zoo.fusetrack_model_cfg())
+train_cfg = zoo.tiny_train_cfg()
+test_cfg = zoo.tiny_test_cfg()
+data["train"]["dataset"]["pipeline"] = dict(
+    img_scale=({w}, {h}), ratio_range=(1.0, 1.0), crop_size=({h}, {w}),
+    max_gt=8)
+data["test"]["pipeline"] = dict(img_scale=({w}, {h}))
+"""
+
+
+def _run_script(cmd, cwd):
+    r = subprocess.run(cmd, cwd=cwd, capture_output=True, text=True,
+                       timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"{cmd} failed (rc {r.returncode}):\n"
+                           f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+
+
+def _loader_seconds(cfg_path):
+    """The config's train loader alone, the run's seed, with 0 workers and
+    with the config's workers: host seconds until each batch of an epoch."""
+    from vps_torch.config import Config
+    from vps_torch.data import build_dataset, build_loader
+
+    cfg = Config.fromfile(cfg_path)
+    out = {}
+    for workers in sorted({0, cfg.data.get("workers_per_gpu", 2)}):
+        loader = build_loader(build_dataset(cfg.data["train"]), 1, seed=0,
+                              num_workers=workers)
+        times = []
+        try:
+            t0 = time.perf_counter()
+            for _ in loader.epoch(0):
+                times.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        finally:
+            loader.close()
+        out[workers] = times
+    return out
+
+
+def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
+    """The user's workflow from a dataset on disk, through the port's entry
+    points in this process: the synthetic Cityscapes-VPS fixture
+    (``vps_torch.data.synth``: 1 train video of 4 frames, 2 val videos of 4
+    frames, h x w), the val GT through the repo's prepare_data scripts, then
+    ``vps_torch.tools.train`` on the port's configs/cityscapes/fusetrack.py
+    (R-50, f32, the config's own pipelines; data paths, 1 epoch of 4 steps
+    and a log line a step overridden), ``vps_torch.tools.test_vpq`` on its
+    checkpoint at ``half-flow`` and ``vps_torch.tools.eval_vpq``; and
+    eval_vpq with the GT itself as the submission, which must read 100.
+    ``tiny``: the tiny model and pipelines at h x w, for a CPU rehearsal.
+    Returns the launch counts of the train and test runs."""
+    import torch
+    from vps_torch.data.synth import make_synth_vps
+    from vps_torch.ops import correlation, correlation_backward
+    from vps_torch.tools import eval_vpq, test_vpq, train
+    from vps_torch.utils.checkpoint import latest_checkpoint
+    from vps_torch.utils.numerics import describe
+
+    on_card = torch.device(device).type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    # 4 frames a val video: VPQ's largest window, which 3 would leave empty
+    train_frames, val_videos, val_frames = 4, 2, 4
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+        t0 = time.perf_counter()
+        fix = os.path.join(tmp, "fixture")
+        train_ann, train_img, train_seg = make_synth_vps(
+            fix, mode="train", n_videos=1, n_frames=train_frames, H=h, W=w,
+            seed=SEED, first_video=101)
+        val_ann, val_img, _ = make_synth_vps(
+            fix, mode="val", n_videos=val_videos, n_frames=val_frames, H=h,
+            W=w, seed=SEED + 1)
+        prep = os.path.join(repo, "prepare_data")
+        for script in ("create_panoptic_labels.py",
+                       "create_panoptic_video_labels.py"):
+            _run_script([sys.executable, os.path.join(prep, script),
+                         "--mode", "val", "--root_dir", fix], prep)
+        gt_json = os.path.join(fix, "panoptic_gt_val_city_vps.json")
+        truth_dir = os.path.join(fix, "val", "panoptic_video")
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(DATASET_CONFIG.format(
+                base=os.path.join(repo, "vps_torch", "configs", "cityscapes",
+                                  "fusetrack.py"),
+                train_ann=train_ann, train_img=train_img, train_seg=train_seg,
+                val_ann=val_ann, val_img=val_img, frames=val_frames))
+            if tiny:
+                f.write(DATASET_TINY.format(h=h, w=w))
+        fixture_s = time.perf_counter() - t0
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        correlation.launches = 0
+        correlation_backward.launches = 0
+        t0 = time.perf_counter()
+        runner = train.main([cfg_path, "--work_dir", os.path.join(tmp, "work"),
+                             "--device", device])
+        _sync(device)
+        train_s = time.perf_counter() - t0
+        train_launches = dict(correlation=correlation.launches,
+                              correlation_backward=correlation_backward.launches)
+        train_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        hist = runner.log_history
+        del runner
+        loader_s = _loader_seconds(cfg_path)
+        if len(hist) != train_frames:
+            raise AssertionError(f"dataset: {len(hist)} logged steps, want "
+                                 f"{train_frames}")
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+        correlation.launches = 0
+        out = os.path.join(tmp, "out", "val.pkl")
+        summary = test_vpq.main([
+            cfg_path, "--checkpoint", latest_checkpoint(os.path.join(tmp, "work")),
+            "--out", out, "--preset",
+            "half-flow", "--lambda", "1", "--labeled_fid", "0",
+            "--nframes_per_video", str(val_frames), "--pan_im_json_file",
+            gt_json, "--device", device])
+        _sync(device)
+        test_launches = dict(correlation=correlation.launches)
+        test_peak = torch.cuda.max_memory_allocated() if on_card else 0
+
+        with open(val_ann) as f:
+            want_arts = sorted(im["file_name"].replace("_newImg8bit", "")
+                               for im in json.load(f)["images"])
+        pan_dir = os.path.join(summary["output_dir"], "pan_pred")
+        written = sorted(n for n in os.listdir(pan_dir)
+                         if os.path.getsize(os.path.join(pan_dir, n)))
+        vpq = eval_vpq.main([
+            "--submit_dir", summary["output_dir"], "--truth_dir", truth_dir,
+            "--pan_gt_json_file", gt_json, "--nframes_per_video",
+            str(val_frames)])
+        # the GT itself as the submission: its pngs and its json, each png
+        # under the name of the image eval_vpq pairs it with (the images in
+        # the json's order, the GT files sorted)
+        gt_sub = os.path.join(tmp, "gt_submission")
+        os.makedirs(os.path.join(gt_sub, "pan_pred"))
+        with open(gt_json) as f:
+            gt = json.load(f)
+        for im, name in zip(gt["images"], sorted(os.listdir(truth_dir))):
+            shutil.copy(os.path.join(truth_dir, name),
+                        os.path.join(gt_sub, "pan_pred", im["id"] + ".png"))
+        with open(os.path.join(gt_sub, "pred.json"), "w") as f:
+            json.dump({"annotations": gt["annotations"]}, f)
+        gt_vpq = eval_vpq.main([
+            "--submit_dir", gt_sub, "--truth_dir", truth_dir,
+            "--pan_gt_json_file", gt_json, "--nframes_per_video",
+            str(val_frames)])
+
+    n_val = val_videos * val_frames
+    steps = [r["time"] for r in hist[1:]]
+    steady = summary["steady_s"]
+    bad = [k for r in hist for k, v in r.items() if not np.isfinite(v)]
+    skips = int(hist[-1]["nonfinite_skips"])
+    arts = summary["artifacts"]
+    print(f"dataset: {describe(numerics)}")
+    print(f"dataset: fixture {h}x{w} (1 train video x {train_frames} frames, "
+          f"{val_videos} val videos x {val_frames}) and GT in {fixture_s:.1f}s; "
+          f"train {'tiny' if tiny else 'R-50'} f32 {len(hist)} steps in "
+          f"{train_s:.1f}s, first step {hist[0]['time']:.3f}s, "
+          f"{statistics.mean(steps):.4f} s/step over steps 2-{len(hist)} "
+          f"({', '.join(f'{t:.4f}' for t in steps)}), peak mem "
+          f"{train_peak / 2**30:.2f} GiB, nonfinite_skips {skips}, launches "
+          f"{train_launches}; card: {smi}")
+    print(f"dataset: train loss step 1 {hist[0]['loss']:.4f}, step "
+          f"{len(hist)} {hist[-1]['loss']:.4f}")
+    print("dataset: the train loader alone, s a batch of 1: " + "; ".join(
+        f"{w} workers " + ", ".join(f"{t:.3f}" for t in ts)
+        for w, ts in loader_s.items()))
+    print(f"dataset: test_vpq half-flow {summary['frames']} frames, "
+          f"{len(steady) / sum(steady):.3f} frames/s over the {len(steady)} "
+          f"after each video's first (predict + outputs to the host), peak "
+          f"mem {test_peak / 2**30:.2f} GiB, launches {test_launches}, "
+          f"{len(arts)} artifacts of {n_val} frames; card: {smi}")
+    print(f"dataset: eval_vpq vpq_all {vpq[0]:.4f} vpq_thing {vpq[1]:.4f} "
+          f"vpq_stuff {vpq[2]:.4f} (after {len(hist)} steps from random "
+          f"weights: a check of the chain, not a quality number); the GT "
+          f"as its own submission: vpq_all {gt_vpq[0]:.4f}")
+    if bad:
+        raise AssertionError(f"dataset: non-finite {sorted(set(bad))}")
+    if skips != 0:
+        raise AssertionError(f"dataset: {skips} steps skipped")
+    if sorted(arts) != want_arts or written != want_arts:
+        raise AssertionError(f"dataset: artifacts {sorted(arts)}, written "
+                             f"{written}, want one for each of {want_arts}")
+    if not all(0.0 <= v <= 100.0 for v in vpq):
+        raise AssertionError(f"dataset: VPQ {vpq} outside [0, 100]")
+    if abs(gt_vpq[0] - 100.0) > 1e-6:
+        raise AssertionError(f"dataset: the GT scores {gt_vpq} against "
+                             f"itself, not 100")
+    want_train = dict(correlation=2 * train_frames,
+                      correlation_backward=train_frames)
+    want_test = dict(correlation=2 * n_val)
+    if on_card and (train_launches != want_train or test_launches != want_test):
+        raise AssertionError(f"dataset: kernel launches train "
+                             f"{train_launches} (want {want_train}), test "
+                             f"{test_launches} (want {want_test})")
+    return train_launches, test_launches
+
+
 def _fingerprints(det, batch, seed, modules=None):
     """One forward of the training loss with the Runner's first draws
     (generator seeded as the Runner seeds it). Returns ({point: exact
@@ -1071,14 +1302,15 @@ def phase_small(device="cuda", dcn_window=None):
 def main() -> int:
     import torch
 
+    # fails outside a checkout of the repo
+    from vps_torch.utils.numerics import describe, f32_policy
+
+    numerics = f32_policy()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    import vps_torch  # noqa: F401  (fails outside a checkout of the repo)
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    print(describe(numerics))
     t0 = time.perf_counter()
     smi = phase_build()
     kernels = [phase_kernels_correlation(), phase_kernels_windowed(),
@@ -1092,6 +1324,7 @@ def main() -> int:
     phase_small()
     phase_small(dcn_window=WINDOW)
     phase_small_train()
+    phase_dataset(smi, numerics)
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -4,9 +4,9 @@ TinyFlow, `exact` preset, f32) with the same weights, asserting what
 tests/test_full_graph_parity.py asserts. Plus the weight bridge round trip,
 predict_video's reset semantics, and the static no-JAX-import check.
 
-Cost: JAX variables come from ``jax.eval_shape`` of ``init`` (seconds, where
-a real flax init of the detector costs minutes), and one jitted ``predict``
-is reused for both frames in a module-scoped fixture.
+Cost: JAX variables come from ``convert_detector`` and seeded TinyFlow
+convs (no init and no trace of the detector), and one jitted ``predict`` is
+reused for both frames in a module-scoped fixture.
 """
 
 import ast
@@ -52,7 +52,7 @@ def _cfgs(zoo_mod):
 
 
 def _fill(tree, rng):
-    """Seeded values for every leaf of an eval_shape tree (the TinyFlow
+    """Seeded values for every leaf of a tree of arrays (the TinyFlow
     weights, which convert_detector does not cover, keep these)."""
     out = {}
     for k, v in tree.items():
@@ -68,6 +68,21 @@ def _fill(tree, rng):
     return out
 
 
+def _weights(params_conv, stats_conv):
+    """The JAX variables: build_sd's through convert_detector, and TinyFlow's
+    three convs (which convert_detector does not cover) from _fill with
+    seed 7 over the tree in flax's sorted key order, as an eval_shape of
+    the detector's init would give it, without tracing the detector."""
+    tiny = {n: {"Conv_0": {"bias": np.zeros((o,), np.float32),
+                           "kernel": np.zeros((3, 3, i, o), np.float32)}}
+            for n, i, o in (("c1", 6, 16), ("c2", 16, 16), ("pred", 16, 2))}
+    frng = np.random.RandomState(7)
+    params = _merge(_fill(dict(sorted({**params_conv, "flownet2": tiny}.items())),
+                          frng), params_conv)
+    stats = _merge(_fill(dict(stats_conv), frng), stats_conv)
+    return jax.tree.map(np.asarray, (params, stats))
+
+
 @pytest.fixture(scope="module")
 def clip():
     """Both stacks on one clip; returns (JAX per-frame outputs, port stacked
@@ -81,13 +96,7 @@ def clip():
     img1 = (0.7 * img0 + 0.3 * rng.randn(1, H, W, 3)).astype(np.float32)
     img2 = (0.7 * img1 + 0.3 * rng.randn(1, H, W, 3)).astype(np.float32)
     state = j_empty_track_state(cap=CAP)
-    shapes = jax.eval_shape(lambda: det.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.asarray(img1),
-        jnp.asarray(img0), state, method=det.predict))
-    frng = np.random.RandomState(7)
-    params = _merge(_fill(shapes["params"], frng), params_conv)
-    stats = _merge(_fill(shapes["batch_stats"], frng), stats_conv)
-    params, stats = jax.tree.map(np.asarray, (params, stats))
+    params, stats = _weights(params_conv, stats_conv)
     predict = jax.jit(lambda v, im, ref, st: det.apply(
         v, im, ref, st, method=det.predict))
     ours = []
@@ -186,16 +195,20 @@ def test_predict_video_resets():
 def test_port_imports_no_jax():
     """vps_torch and chip_smoke.py import nothing of jax, flax, optax or
     vps_tpu (static check over every module's import statements), the
-    training modules included."""
+    training, data, eval, tools and config modules included."""
     banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     names = {p.relative_to(REPO).as_posix() for p in files}
-    training = {f"vps_torch/{m}.py" for m in (
+    required = {f"vps_torch/{m}.py" for m in (
         "core/assigner", "core/sampler", "core/targets", "ops/losses",
         "ops/mask", "train/optim", "train/step", "train/runner",
-        "utils/checkpoint")}
-    assert training <= names, training - names
+        "utils/checkpoint", "utils/numerics", "config", "data/coco",
+        "data/transforms", "data/dataset", "data/loader", "data/synth",
+        "eval/pq", "eval/vpq", "eval/unified", "train/eval_hook",
+        "tools/train", "tools/test_vpq", "tools/eval_vpq",
+        "configs/cityscapes/fusetrack", "configs/cityscapes/fusetrack_fast")}
+    assert required <= names, required - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

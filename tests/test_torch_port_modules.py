@@ -10,6 +10,8 @@ output's max magnitude (+1e-5), i.e. agreement to summation order through
 tens of f32 layers.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -80,8 +82,9 @@ def _fill(tree, rng):
 
 
 def _bridge(jmod, prefix, port, *args, method=None, seed=0):
-    """eval_shape-init `jmod`, fill, load the same values into `port`.
-    Returns the flax variables."""
+    """eval_shape-init `jmod`, fill, load the same values into `port` (which
+    may be built on the meta device: the values are assigned). Returns the
+    flax variables."""
     shapes = jax.eval_shape(
         lambda: jmod.init(jax.random.PRNGKey(0), *args, method=method))
     rng = np.random.default_rng(seed)
@@ -89,7 +92,7 @@ def _bridge(jmod, prefix, port, *args, method=None, seed=0):
     sd = state_dict_from_jax({prefix: variables["params"]},
                              {prefix: variables.get("batch_stats", {})})
     port.load_state_dict({k[len(prefix) + 1:]: v for k, v in sd.items()},
-                         strict=True)
+                         strict=True, assign=True)
     return variables
 
 
@@ -165,10 +168,11 @@ def test_flownet2():
     b = np.clip(a + rng.standard_normal((1, 64, 64, 3)) * 10, 0, 255
                 ).astype(np.float32)
     jm = JFlowNet2(compute_dtype=None)
-    pm = FlowNet2(compute_dtype=None, device="cpu")
+    pm = FlowNet2(compute_dtype=None, device="meta")  # no init: values assigned
     assert sum(p.numel() for p in pm.parameters()) == 162_518_834
     v = _bridge(jm, "flownet2", pm, jnp.asarray(a), jnp.asarray(b))
-    want = jm.apply(v, jnp.asarray(a), jnp.asarray(b))  # eager: cheaper than jit
+    assert all(p.device.type == "cpu" for p in pm.state_dict().values())
+    want = jax.jit(jm.apply)(v, jnp.asarray(a), jnp.asarray(b))
     with torch.no_grad():
         got = pm(T(a), T(b))
     _close(got.numpy(), want)
@@ -209,7 +213,7 @@ def test_upsnet_fpn(head_stride, dcn_window):
     jm = JUPSNetFPN(**kw)
     pm = UPSNetFPN(device="cpu", **kw)
     v = _bridge(jm, "panopticFPN", pm, [jnp.asarray(x) for x in xs])
-    want_out, want_score = jm.apply(v, [jnp.asarray(x) for x in xs])
+    want_out, want_score = jax.jit(jm.apply)(v, [jnp.asarray(x) for x in xs])
     with torch.no_grad():
         out, score = pm([T(x).permute(0, 3, 1, 2) for x in xs])
     _close(_nhwc(score), want_score)
@@ -224,7 +228,7 @@ def test_rpn_head_and_proposals():
     jm = JRPNHead()
     pm = RPNHead(device="cpu")
     v = _bridge(jm, "rpn_head", pm, [jnp.asarray(x) for x in xs])
-    jcls, jreg = jm.apply(v, [jnp.asarray(x) for x in xs])
+    jcls, jreg = jax.jit(jm.apply)(v, [jnp.asarray(x) for x in xs])
     with torch.no_grad():
         pcls, preg = pm([T(x).permute(0, 3, 1, 2) for x in xs])
     for g, wnt in zip(pcls + preg, list(jcls) + list(jreg)):
@@ -287,9 +291,10 @@ def test_panoptic_tail_ops():
     valid = rng.rand(n) > 0.1
     prob = rng.dirichlet(np.full(k, 0.3), n).astype(np.float32)
     deltas = (rng.randn(n, 4 * k) * 0.5).astype(np.float32)
-    jd = j_panoptic_dets(jnp.asarray(rois), jnp.asarray(valid),
-                         jnp.asarray(prob), jnp.asarray(deltas), (96, 128),
-                         score_thresh=0.3, top_n=16)
+    jd = jax.jit(functools.partial(j_panoptic_dets, img_shape=(96, 128),
+                                   score_thresh=0.3, top_n=16))(
+        jnp.asarray(rois), jnp.asarray(valid), jnp.asarray(prob),
+        jnp.asarray(deltas))
     pd = panoptic_dets(T(rois), T(valid), T(prob), T(deltas), (96, 128),
                        score_thresh=0.3, top_n=16)
     np.testing.assert_array_equal(pd[3].numpy(), np.asarray(jd[3]))
@@ -308,10 +313,10 @@ def test_panoptic_tail_ops():
     st = (rng.randn(cap, 7, 7, 4).astype(np.float32),
           rng.uniform(0, 50, (cap, 4)).astype(np.float32),
           rng.randint(0, 8, cap).astype(np.int32), mem_valid, np.int32(5))
-    jids, jst = j_track_assign(jnp.asarray(comp), jnp.asarray(boxes),
-                               jnp.asarray(labels), jnp.asarray(feats),
-                               jnp.asarray(dvalid),
-                               JTrackState(*(jnp.asarray(a) for a in st)))
+    jids, jst = jax.jit(j_track_assign)(
+        jnp.asarray(comp), jnp.asarray(boxes), jnp.asarray(labels),
+        jnp.asarray(feats), jnp.asarray(dvalid),
+        JTrackState(*(jnp.asarray(a) for a in st)))
     pids, pst = track_assign(T(comp), T(boxes), T(labels), T(feats), T(dvalid),
                              TrackState(*(torch.as_tensor(a) for a in st)))
     np.testing.assert_array_equal(pids.numpy(), np.asarray(jids))
@@ -320,7 +325,7 @@ def test_panoptic_tail_ops():
 
     mask28 = rng.randn(16, 28, 28).astype(np.float32)
     fcn = rng.randn(96, 128, 19).astype(np.float32)
-    jf = j_mask_removal_and_fuse(
+    jf = jax.jit(j_mask_removal_and_fuse)(
         jnp.asarray(boxes), jnp.asarray(probs), jnp.asarray(cls),
         jnp.asarray(dvalid), jids, jnp.asarray(mask28), jnp.asarray(fcn))
     pf = mask_removal_and_fuse(

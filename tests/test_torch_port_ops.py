@@ -7,8 +7,11 @@ Tolerances: f32 paths agree to summation order (atol 1e-5 on O(1) values);
 index-valued results (NMS keep sets, sample positions) must be identical.
 """
 
+import functools
+
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -105,9 +108,10 @@ def test_deform_conv2d_multilevel(sampling):
     offs = [rng.uniform(-2.5, 2.5, (1, h, w, 18)).astype(np.float32)
             for h, w in shapes]
     w_hwio = (rng.randn(3, 3, cin, cout) / np.sqrt(9 * cin)).astype(np.float32)
-    want = jax_deform_conv2d_multilevel(
+    want = jax.jit(functools.partial(
+        jax_deform_conv2d_multilevel, padding=1, sampling=sampling))(
         [jnp.asarray(x) for x in xs], [jnp.asarray(o) for o in offs],
-        jnp.asarray(w_hwio), padding=1, sampling=sampling)
+        jnp.asarray(w_hwio))
     got = ops.deform_conv2d_multilevel(
         [T(x) for x in xs], [T(o) for o in offs],
         T(np.ascontiguousarray(w_hwio.transpose(3, 2, 0, 1))), padding=1,
@@ -139,10 +143,11 @@ def test_deform_conv2d(case):
         bias = rng.randn(cout).astype(np.float32)
     sampling = "nearest" if case == "nearest" else "bilinear"
     opt = lambda a, f: None if a is None else f(a)  # noqa: E731
-    want = jax_deform_conv2d(
+    want = jax.jit(functools.partial(
+        jax_deform_conv2d, stride=stride, padding=1, dilation=dilation,
+        sampling=sampling))(
         jnp.asarray(x), jnp.asarray(off), jnp.asarray(_hwio(weight)),
-        bias=opt(bias, jnp.asarray), stride=stride, padding=1,
-        dilation=dilation, mask=opt(mask, jnp.asarray), sampling=sampling)
+        bias=opt(bias, jnp.asarray), mask=opt(mask, jnp.asarray))
     got = ops.deform_conv2d(T(x), T(off), T(weight), bias=opt(bias, T),
                             stride=stride, padding=1, dilation=dilation,
                             mask=opt(mask, T), sampling=sampling)

@@ -5,8 +5,8 @@ weights, with the asserts of ``test_fusetrack_clip_matches_jax``. On the CPU
 both sides take the clamped-gather reference of the windowed DCN.
 
 Its own file, so that a parallel run can give its JAX compile a worker of
-its own. JAX variables come from ``jax.eval_shape`` (seconds, where a flax
-init of the detector costs minutes).
+its own. JAX variables come from ``convert_detector`` and seeded TinyFlow
+convs (``_weights``: no init and no trace of the detector).
 """
 
 import numpy as np
@@ -20,8 +20,8 @@ from vps_tpu.models.detectors import PanopticFuseTrack as JPanopticFuseTrack
 from vps_tpu.models.detectors import empty_track_state as j_empty_track_state
 from vps_tpu.utils.convert import convert_detector
 
-from test_full_graph_parity import _merge, build_sd
-from test_torch_port_fusetrack import CAP, H, W, _cfgs, _fill, assert_frame_matches
+from test_full_graph_parity import build_sd
+from test_torch_port_fusetrack import CAP, H, W, _cfgs, _weights, assert_frame_matches
 from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 from vps_torch import zoo
@@ -50,13 +50,7 @@ def test_fusetrack_windowed_frame_matches_jax():
     img0 = rng.randn(1, H, W, 3).astype(np.float32)
     img1 = (0.7 * img0 + 0.3 * rng.randn(1, H, W, 3)).astype(np.float32)
     state = j_empty_track_state(cap=CAP)
-    shapes = jax.eval_shape(lambda: det.init(
-        {"params": jax.random.PRNGKey(0)}, jnp.asarray(img1),
-        jnp.asarray(img0), state, method=det.predict))
-    frng = np.random.RandomState(7)
-    params = _merge(_fill(shapes["params"], frng), params_conv)
-    stats = _merge(_fill(shapes["batch_stats"], frng), stats_conv)
-    params, stats = jax.tree.map(np.asarray, (params, stats))
+    params, stats = _weights(params_conv, stats_conv)
     ours, _ = jax.jit(lambda v, im, ref, st: det.apply(
         v, im, ref, st, method=det.predict))(
         {"params": params, "batch_stats": stats}, jnp.asarray(img1),

@@ -2,9 +2,11 @@
 training, for one NVIDIA H100.
 
 Layout mirrors ``vps_tpu`` (``ops/``, ``models/``, ``models/flow/``,
-``models/detectors/``, ``core/``, ``train/``, ``utils/``) so every module has
-a counterpart under the same name; hand-written Hopper kernels live in
-``csrc/``. The package imports torch, numpy and the standard library only.
+``models/detectors/``, ``core/``, ``train/``, ``utils/``, ``data/``,
+``eval/``) so every module has a counterpart under the same name; the
+entry points are ``tools/`` (train, test_vpq, eval_vpq), the configs
+``configs/``, and hand-written Hopper kernels live in ``csrc/``. The
+package imports torch, numpy, cv2, PIL and the standard library only.
 """
 
 from __future__ import annotations

@@ -19,6 +19,7 @@ windowed DCN's sum over a frame's 12 launches, then the card as
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -57,8 +58,6 @@ def measure(seed: int) -> dict:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(seed)
     times = {}
     for name, (shape, md, s2) in CORR_SITES.items():
@@ -87,12 +86,25 @@ def measure(seed: int) -> dict:
     return times
 
 
-def main():
+def _f32_policy() -> str:
+    """Apply this tree's numerics policy, loaded from its file (a measuring
+    process imports ``vps_torch`` from the tree it measures, which may
+    predate the policy: both trees are measured under this one); returns
+    the settings as a line of text."""
+    path = Path(__file__).resolve().parent / "utils" / "numerics.py"
+    spec = importlib.util.spec_from_file_location("_vps_torch_numerics", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.describe(mod.f32_policy())
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="tree of the earlier version (holds vps_torch/)")
     ap.add_argument("--measure", help=argparse.SUPPRESS)  # a tree: time it, print JSON
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    numerics = _f32_policy()
     if args.measure:
         sys.path[0] = str(Path(args.measure).resolve())  # not this file's directory
         print(json.dumps(measure(args.seed)))
@@ -120,6 +132,7 @@ def main():
             frame[1] += statistics.mean(new)
     print(f"ab {DCN_PREFIX} per frame (12 launches): parent {frame[0]:.4f} ms, "
           f"current {frame[1]:.4f} ms, ratio {frame[0] / frame[1]:.2f}x")
+    print(numerics)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip())

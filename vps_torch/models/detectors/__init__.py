@@ -2,10 +2,13 @@
 
 from vps_torch.models.detectors.panoptic import (
     PanopticFuseTrack,
+    build_detector,
+    make_frame_step,
     predict_video,
     random_init_,
 )
 from vps_torch.models.detectors.panoptic_ops import TrackState, empty_track_state
 
-__all__ = ["PanopticFuseTrack", "TrackState", "empty_track_state",
-           "predict_video", "random_init_"]
+__all__ = ["PanopticFuseTrack", "TrackState", "build_detector",
+           "empty_track_state", "make_frame_step", "predict_video",
+           "random_init_"]

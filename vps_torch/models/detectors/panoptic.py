@@ -32,6 +32,7 @@ from vps_torch.models.detectors.panoptic_ops import (
     TrackState,
     _paste_logit_window,
     _seg_window,
+    empty_track_state,
     mask_removal_and_fuse,
     panoptic_dets,
     track_assign,
@@ -505,6 +506,45 @@ def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
         frames.append(outputs)
     stacked = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
     return stacked, (state, ref_feats, prev)
+
+
+def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
+                    img_shape_withoutpad: Optional[Tuple[int, int]] = None):
+    """The per-frame loop of a video stream (the JAX test_vpq tool's
+    ``step_first`` / ``step``): returns ``step(img, ref_img, is_first)`` for
+    one (H, W, 3) normalised numpy frame and its reference frame, which
+    returns ``predict``'s outputs without the carry. A video's first frame
+    clears the track state and computes the reference pyramid from ref_img;
+    later frames carry the previous frame's pyramid and the track state.
+    Frame for frame the same as ``predict_video``."""
+    carry = {"state": empty_track_state(track_cap, device=det.device),
+             "feats": None}
+
+    def step(img, ref_img, is_first: bool):
+        if is_first:
+            carry["state"] = empty_track_state(track_cap, device=det.device)
+            carry["feats"] = None
+        outputs, carry["state"] = det.predict(
+            torch.as_tensor(img, device=det.device)[None],
+            torch.as_tensor(ref_img, device=det.device)[None], carry["state"],
+            img_shape_withoutpad=img_shape_withoutpad,
+            ref_feats=carry["feats"])
+        carry["feats"] = outputs.pop("fpn_feats")
+        return outputs
+
+    return step
+
+
+def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
+                   device="cuda") -> PanopticFuseTrack:
+    """A detector from a config's ``model`` dict (its ``type`` names the
+    class; PanopticFuseTrack is the one ported)."""
+    cfg = dict(model_cfg)
+    kind = cfg.pop("type", "PanopticFuseTrack")
+    if kind != "PanopticFuseTrack":
+        raise ValueError(f"detector type {kind!r} is not ported")
+    return PanopticFuseTrack(train_cfg=train_cfg, test_cfg=test_cfg,
+                             device=device, **cfg)
 
 
 def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:

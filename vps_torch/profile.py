@@ -16,7 +16,7 @@ kernels are launched through ctypes, outside any PyTorch op, and the
 profiler links a kernel to a named range only through an op: the stage sums
 leave them out, so they are listed on their own (correlation belongs to
 flownet2 and fuse_neck, the windowed DCN to semantic_head). Needs a card;
-TF32 is off, as in chip_smoke.py.
+TF32 is off (``vps_torch.utils.numerics.f32_policy``).
 
 ``train_step`` does the same for one training step of a model the caller
 built (chip_smoke.py's train phase calls it): the step split into forward,
@@ -41,6 +41,7 @@ from vps_torch.models.detectors import (
     predict_video,
     random_init_,
 )
+from vps_torch.utils.numerics import describe, f32_policy
 
 STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
           "bbox_dets", "track", "mask_fusion")
@@ -148,10 +149,9 @@ def main(argv=None) -> None:
                     help="clamp the semantic head's DCN offsets to +-R and "
                          "run its windowed kernel (default: exact DCN)")
     args = ap.parse_args(argv)
+    numerics = f32_policy()
     if not torch.cuda.is_available():
         raise SystemExit("vps_torch.profile needs an NVIDIA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     h, w = 1024, 2048
 
     cfg = zoo.fusetrack_model_cfg()
@@ -186,7 +186,7 @@ def main(argv=None) -> None:
     print(f"frame (dcn_window={args.dcn_window}): {plain_s * 1e3:.1f} ms "
           f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
           f"device busy {busy:.3f} of the profiled window ({args.frames} "
-          f"frames, {h}x{w})")
+          f"frames, {h}x{w}); {describe(numerics)}")
     _summary(events, kernels, STAGES, args.frames, "frame")
 
 

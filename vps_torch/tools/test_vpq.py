@@ -1,0 +1,142 @@
+"""Video panoptic inference and the VPS artifacts (the port's counterpart of
+the repo's ``tools/test_vpq.py``, its per-frame path): every frame of every
+test video runs through the detector in order (a video's first frame resets
+the track state, later frames carry the previous frame's FPN pyramid), then
+the unified 3-channel panoptic maps are built and ``pan_pred/*.png`` +
+``pred.json`` written for ``vps_torch.tools.eval_vpq``.
+
+    python -m vps_torch.tools.test_vpq CONFIG --checkpoint CKPT --out OUT.pkl
+        [--preset half-flow] [--pan_im_json_file GT.json] [--lambda 5]
+        [--labeled_fid 20] [--nframes_per_video 6] [--track_cap 256]
+        [--device cuda|cpu]
+
+Writes ``OUT_pano.pkl`` (the per-frame semantic and panoptic maps, class
+indices and track ids) and ``OUT_pans_unified/``. Runs on the card unless
+``--device cpu``. The on-device chunked and multi-stream paths, test-time
+augmentation and visualisation are not ported.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import os.path as osp
+import pickle
+import statistics
+import time
+
+import numpy as np
+
+from vps_torch import resolve_device, zoo
+from vps_torch.config import Config
+from vps_torch.data import build_dataset
+from vps_torch.eval.unified import get_unified_pan_result, save_panoptic_outputs
+from vps_torch.models.detectors import build_detector, make_frame_step
+from vps_torch.utils.checkpoint import load_checkpoint
+from vps_torch.utils.numerics import describe, f32_policy
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("config")
+    p.add_argument("--checkpoint", required=True)
+    p.add_argument("--out", required=True, help="output pickle path")
+    p.add_argument("--pan_im_json_file", default=None,
+                   help="categories json (panoptic gt im json)")
+    p.add_argument("--track_cap", type=int, default=256)
+    p.add_argument("--lambda", dest="lambda_", type=int, default=5,
+                   help="frame subsampling stride of the annotated frames "
+                        "(every 5th Cityscapes-VPS frame is labeled; 1 = "
+                        "all frames)")
+    p.add_argument("--labeled_fid", type=int, default=20)
+    p.add_argument("--nframes_per_video", type=int, default=6)
+    p.add_argument("--preset", default=None,
+                   help="inference preset applied to the model cfg "
+                        "(zoo.PRESETS); presets are param-free, so any "
+                        "checkpoint loads unchanged")
+    p.add_argument("--device", default="cuda")
+    return p.parse_args(argv)
+
+
+def main(argv=None):
+    """Returns a summary: the frame count, the seconds of each frame after
+    its video's first (predict and the copy of its outputs to the host),
+    the artifact paths and the numerics settings."""
+    args = parse_args(argv)
+    numerics = f32_policy()
+    device = resolve_device(args.device)
+    cfg = Config.fromfile(args.config)
+    if args.preset:
+        cfg.model = zoo.preset_overrides(cfg.model, args.preset)
+    det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device)
+    restored = load_checkpoint(args.checkpoint,
+                               {"state_dict": det.state_dict()})
+    det.load_state_dict(restored["state_dict"])
+    dataset = build_dataset(cfg.data["test"])
+
+    results = dict(all_names=[], all_ssegs=[], all_panos=[],
+                   all_pano_cls_inds=[], all_pano_obj_ids=[])
+    step = None
+    steady_s = []
+    for idx in range(len(dataset)):
+        img, ref_img, meta = dataset.prepare_test(idx)
+        if step is None:  # the first frame's unpadded shape, for every frame
+            step = make_frame_step(
+                det, track_cap=args.track_cap,
+                img_shape_withoutpad=tuple(meta["img_shape_withoutpad"]))
+        t0 = time.perf_counter()
+        outputs = step(img, ref_img, meta["is_first"])
+        out = {k: v.cpu().numpy() for k, v in outputs.items()}
+        if not meta["is_first"]:
+            steady_s.append(time.perf_counter() - t0)
+        nk = int(out["num_keep"])
+        results["all_names"].append(meta["filename"].split("/")[-1])
+        results["all_ssegs"].append(out["fcn_outputs"].astype(np.uint8))
+        results["all_panos"].append(out["panoptic_outputs"].astype(np.uint8))
+        results["all_pano_cls_inds"].append(out["panoptic_cls_inds"][:nk])
+        results["all_pano_obj_ids"].append(out["panoptic_det_obj_ids"][:nk])
+
+    os.makedirs(osp.dirname(osp.abspath(args.out)), exist_ok=True)
+    pkl = args.out.replace(".pkl", "_pano.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump(results, f, protocol=2)
+
+    pano_cfg = cfg.test_cfg.get("panoptic", {})
+    stuff_area = pano_cfg.get("stuff_area_limit", 4 * 64 * 64)
+    pcfg = cfg.model.get("panoptic", {})
+    num_stuff = pcfg.get("num_classes", 19) - pcfg.get("num_things_classes", 8)
+    pred_pans_2ch = get_unified_pan_result(
+        results["all_ssegs"], results["all_panos"],
+        results["all_pano_cls_inds"], results["all_pano_obj_ids"],
+        names=results["all_names"], stuff_area_limit=stuff_area,
+        num_stuff=num_stuff,
+    )
+    if args.pan_im_json_file:
+        with open(args.pan_im_json_file) as f:
+            categories = {c["id"]: c for c in json.load(f)["categories"]}
+    else:
+        categories = {
+            i: dict(id=i, isthing=1 if i >= 11 else 0,
+                    color=[(i * 37 + 29) % 256, (i * 91 + 7) % 256,
+                           (i * 173 + 83) % 256])
+            for i in range(19)
+        }
+    output_dir = args.out.replace(".pkl", "_pans_unified")
+    os.makedirs(output_dir, exist_ok=True)
+    names, _ = save_panoptic_outputs(
+        pred_pans_2ch, categories, output_dir, lambda_=args.lambda_,
+        labeled_fid=args.labeled_fid,
+        nframes_per_video=args.nframes_per_video)
+    fps = (len(steady_s) / sum(steady_s)) if steady_s else float("nan")
+    print(f"test_vpq: {len(dataset)} frames on {device}, {len(steady_s)} "
+          f"after a video's first at {fps:.3f} frames/s (median "
+          f"{statistics.median(steady_s) if steady_s else float('nan'):.4f} "
+          f"s: predict + outputs to the host); {len(names)} artifacts in "
+          f"{output_dir}; {describe(numerics)}")
+    return dict(frames=len(dataset), steady_s=steady_s, pickle=pkl,
+                output_dir=output_dir, artifacts=names, numerics=numerics)
+
+
+if __name__ == "__main__":
+    main()

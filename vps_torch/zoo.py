@@ -171,3 +171,12 @@ def tiny_train_cfg() -> Dict[str, Any]:
     cfg["rpn_proposal"].update(nms_pre=200, nms_post=200, max_num=128)
     cfg["rcnn"]["sampler"]["num"] = 64
     return cfg
+
+
+def tiny_test_cfg() -> Dict[str, Any]:
+    """``fusetrack_test_cfg`` with the proposals and detections cut for
+    tests."""
+    cfg = fusetrack_test_cfg()
+    cfg["rpn"].update(nms_pre=128, nms_post=128, max_num=128)
+    cfg["panoptic"]["max_det"] = 16
+    return cfg
