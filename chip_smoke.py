@@ -198,11 +198,13 @@ def phase_build():
 
 def phase_kernels_correlation():
     """Kernel vs correlation_reference at both call sites (bf16 as on the
-    half-flow main path: the tensor-core kernel; and f32: the SIMT kernel),
-    at both call sites of the f32 train path (the 800x1600 crop), at ragged
-    shapes (C = 30 and 300, staged element by element; C = 512;
-    stride2 5 and 6), and at FlowNetC's geometry with W = 100, not a
-    multiple of the 64-pixel block. Tolerance: f32 atol 1e-5 + rtol 1e-5
+    half-flow main path: the tensor-core kernel; and f32: the register-tiled
+    SIMT kernel), at both call sites of the f32 train path (the 800x1600
+    crop) and of the f32 `exact` preset (FlowNetC at flow_input_scale 1.0),
+    at ragged shapes (C = 30 and 300, staged element by element; C = 512;
+    stride2 3, 5 and 6; B = 3; H < md, so every displacement row is partly
+    outside the map), and at FlowNetC's geometry with W = 100, not a
+    multiple of either kernel's block. Tolerance: f32 atol 1e-5 + rtol 1e-5
     (summation order); bf16 one output ulp (rtol 2^-7) + atol 1e-6: products
     of bf16 values are exact in f32, so both round an f32 sum, taken in
     another order, to bf16, which can land one ulp apart."""
@@ -217,7 +219,8 @@ def phase_kernels_correlation():
     cases = [(name, shape, md, s2, dt) for name, (shape, md, s2) in sites.items()
              for dt in ("bfloat16", "float32")]
     cases += [("train-liteflow", TRAIN_CORR, 4, 1, "float32"),
-              ("train-flownetc", flownetc_shape(TRAIN_H, TRAIN_W), 20, 2, "float32")]
+              ("train-flownetc", flownetc_shape(TRAIN_H, TRAIN_W), 20, 2, "float32"),
+              ("exact-flownetc", flownetc_shape(H, W, 1.0), 20, 2, "float32")]
     cases += [("ragged", (2, 37, 53, 96), 4, 1, dt) for dt in ("bfloat16", "float32")]
     # C = 30: element-wise staging and a partial channel chunk
     cases += [("ragged", (2, 37, 53, 30), 6, 2, dt) for dt in ("bfloat16", "float32")]
@@ -229,9 +232,16 @@ def phase_kernels_correlation():
               for shape, md, s2 in (((1, 12, 70, 300), 4, 1), ((1, 8, 40, 512), 6, 2),
                                     ((1, 10, 90, 40), 12, 5), ((2, 7, 75, 64), 20, 6))
               for dt in ("bfloat16", "float32")]
+    # B = 3; H < md (every displacement row partly outside the map); stride2
+    # 3; W not a multiple of the f32 kernel's 32- or 16-pixel block
+    cases += [("ragged", shape, md, s2, dt)
+              for shape, md, s2 in (((3, 3, 45, 64), 4, 1), ((1, 5, 70, 256), 20, 2),
+                                    ((3, 9, 50, 300), 6, 3), ((1, 12, 70, 40), 80, 4))
+              for dt in ("bfloat16", "float32")]
     max_err = 0.0
     per_frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     per_step = dict(per_frame)
+    per_exact = dict(per_frame)  # the exact preset's f32 frame
     bounds = []
     for name, shape, md, s2, dt in cases:
         dtype = getattr(torch, dt)
@@ -259,13 +269,17 @@ def phase_kernels_correlation():
             per_frame["plain_ms"] += plain
             per_frame["bound_ms"] += bound
             bounds.append((bound, by))
-        if name.startswith("train-"):
-            for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
-                per_step[key] += v
-    print(f"kernel correlation per train step (f32, 2 launches): "
-          f"ms={per_step['ms']:.4f} bound_ms={per_step['bound_ms']:.4f} ratio "
-          f"{per_step['ms'] / per_step['bound_ms']:.1f}x "
-          f"plain_ms={per_step['plain_ms']:.4f}")
+        for total, take in ((per_step, name.startswith("train-")),
+                            (per_exact, dt == "float32" and name in
+                             ("liteflow", "exact-flownetc"))):
+            if take:
+                for key, v in (("ms", ms), ("plain_ms", plain), ("bound_ms", bound)):
+                    total[key] += v
+    for what, total in (("train step", per_step), ("exact frame", per_exact)):
+        print(f"kernel correlation per {what} (f32, 2 launches): "
+              f"ms={total['ms']:.4f} bound_ms={total['bound_ms']:.4f} ratio "
+              f"{total['ms'] / total['bound_ms']:.1f}x "
+              f"plain_ms={total['plain_ms']:.4f}")
     return dict(name="correlation", route="cuda",
                 source="vps_torch/csrc/correlation.cu",
                 replaces="vps_tpu/ops/correlation.py:32",
@@ -318,7 +332,8 @@ def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
 def phase_kernels_windowed():
     """Windowed DCN vs its plain version: the 12 launches of a half-flow
     frame (4 levels x 3 convs, bf16, offsets N(0, 1.5), R = 4), level 0 with
-    the offsets x8 (mostly clamped to +-R), and ragged shapes in bf16 and f32
+    the offsets x8 (mostly clamped to +-R), the f32 route at level 0
+    (256 -> 256, no preset runs it), and ragged shapes in bf16 and f32
     at R = 4 and 2 (Cin 48 -> Cout 40, integer offsets; Cin 16 -> Cout 6,
     element-wise stores; Cin 20 -> Cout 12, element-wise corner reads).
     ms, plain_ms and bound_ms of the JSON line are per frame: sums over the
@@ -341,6 +356,8 @@ def phase_kernels_windowed():
     h0, w0 = DCN_LEVELS[0]
     extra = [((1, h0, w0, cin), cout, WINDOW, 12.0, "bfloat16", False)
              for cin, cout in DCN_CONVS[:2]]
+    # the f32 route (Y matmul + mix kernel) at level 0, 256 -> 256
+    extra += [((1, h0, w0, 256), 256, WINDOW, 1.5, "float32", False)]
     extra += [((2, 37, 53, 48), 40, window, 1.5, dt, False)
               for window in (4, 2) for dt in ("float32", "bfloat16")]
     extra += [((2, 37, 53, 48), 40, 4, 3.0, dt, True)

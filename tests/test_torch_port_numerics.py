@@ -1,7 +1,7 @@
 """The port's numerics policy (``vps_torch.utils.numerics.f32_policy``):
-the entry points that stop without a card (profile, kernel_ab, chip_smoke)
-switch TF32 off first, and a static check that only the policy sets a flag
-and nothing sets one at import. The three tools are checked in
+the entry points that stop without a card (profile, kernel_ab, kernel_ablate,
+chip_smoke) switch TF32 off first, and a static check that only the policy
+sets a flag and nothing sets one at import. The three tools are checked in
 ``test_torch_port_cli.py``, which runs them.
 """
 
@@ -46,9 +46,9 @@ def _module(path):
 
 
 def test_entry_points_without_a_card_set_the_f32_policy(tf32_on):
-    """The profile, kernel_ab and chip_smoke entry points switch TF32 off
-    before they look for a card (and, without one, stop)."""
-    from vps_torch import kernel_ab, profile
+    """The profile, kernel_ab, kernel_ablate and chip_smoke entry points
+    switch TF32 off before they look for a card (and, without one, stop)."""
+    from vps_torch import kernel_ab, kernel_ablate, profile
 
     with pytest.raises(SystemExit):
         profile.main(["--frames", "1"])
@@ -56,6 +56,10 @@ def test_entry_points_without_a_card_set_the_f32_policy(tf32_on):
     _set_tf32()
     with pytest.raises(SystemExit):
         kernel_ab.main([])
+    assert _tf32_off()
+    _set_tf32()
+    with pytest.raises(SystemExit):
+        kernel_ablate.main([])
     assert _tf32_off()
     _set_tf32()
     assert _module(REPO / "chip_smoke.py").main() != 0

@@ -5,6 +5,9 @@ CUDA kernels against their plain versions and need a card.
 
 Tolerances: f32 paths agree to summation order (atol 1e-5 on O(1) values);
 index-valued results (NMS keep sets, sample positions) must be identical.
+The windowed DCN's gradients are checked in a one-test file of their own,
+``test_torch_port_windowed_grads.py`` (pytest-xdist's loadfile scheduler
+queues a one-test file after the files with several).
 """
 
 import functools
@@ -74,6 +77,18 @@ def test_correlation_rejects_bad_input():
         ops.correlation(a, torch.zeros(1, 4, 5, 8), 2, 1)
     with pytest.raises(TypeError):
         ops.correlation(a.half(), a.half(), 2, 1)
+
+
+def test_kernel_ablate_texts_are_in_the_source():
+    """Each ablation of ``vps_torch.kernel_ablate`` changes exactly one spot
+    of the f32 correlation kernel's source (it refuses to run otherwise)."""
+    from vps_torch import kernel_ablate
+    from vps_torch.ops import cuda_build
+
+    source = (cuda_build.CSRC / "correlation.cu").read_text()
+    for name, change in kernel_ablate.ABLATIONS.items():
+        if change is not None:
+            assert source.count(change[0]) == 1, name
 
 
 @pytest.mark.parametrize("sampling", ["bilinear", "nearest"])
@@ -193,26 +208,6 @@ def test_deform_conv2d_windowed_bf16():
     assert np.abs(got.numpy() - want).max() <= 2.0 ** -8 * np.abs(want).max()
 
 
-def test_deform_conv2d_windowed_grads():
-    """Gradients of x, offset and weight against jax.grad (whose backward
-    is the VJP of _windowed_ref), offsets partly clamped, rtol/atol 1e-4."""
-    import jax
-
-    rng = np.random.RandomState(14)
-    x, off, weight = _windowed_inputs(rng, (1, 6, 6, 2), 3, 2.5)
-    g = rng.randn(1, 6, 6, 3).astype(np.float32)
-    jgrads = jax.jit(jax.grad(
-        lambda a, o, w_: jnp.sum(jax_deform_conv2d_windowed(a, o, w_, 1, 2)
-                                 * jnp.asarray(g)), argnums=(0, 1, 2)))(
-        jnp.asarray(x), jnp.asarray(off), jnp.asarray(_hwio(weight)))
-    xs, offs, ws = (T(a.copy()).requires_grad_() for a in (x, off, weight))
-    (ops.deform_conv2d_windowed(xs, offs, ws, 1, 2) * T(g)).sum().backward()
-    for got, want in ((xs.grad, jgrads[0]), (offs.grad, jgrads[1]),
-                      (ws.grad.permute(2, 3, 1, 0), jgrads[2])):
-        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
-                                   atol=1e-4)
-
-
 def test_deform_conv2d_windowed_rejects_bad_input():
     x, off, w = torch.zeros(1, 4, 5, 8), torch.zeros(1, 4, 5, 18), torch.zeros(6, 8, 3, 3)
     with pytest.raises(TypeError):  # x and weight dtypes differ
@@ -327,12 +322,13 @@ def test_nms_identical_keep_sets(seed):
 @pytest.mark.cuda
 def test_correlation_kernel_matches_plain_on_card():
     """The CUDA kernels against correlation_reference on the card: f32 (the
-    SIMT kernel) within 1e-5 (sum order); bf16 (the tensor-core kernel)
-    within one output ulp (rtol 2^-7) + 1e-6. Both call-site geometries,
-    ragged ones (C = 30 is staged element by element), FlowNetC's geometry
-    with W not a multiple of the 64-pixel block, stride 3 and 4, C > 256
-    (f1 staged with every unit; C = 300 element by element) and stride 5 and
-    6 (residue groups)."""
+    register-tiled SIMT kernel) within 1e-5 (sum order); bf16 (the
+    tensor-core kernel) within one output ulp (rtol 2^-7) + 1e-6. Both
+    call-site geometries (and the f32 train crop's), ragged ones (C = 30 is
+    staged element by element), FlowNetC's geometry with W not a multiple of
+    either kernel's block, stride 3 and 4, C > 256 (f1 staged with every
+    unit; C = 300 element by element), stride 5 and 6 (residue groups),
+    B = 3, and H < md (every displacement row partly outside the map)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -341,7 +337,9 @@ def test_correlation_kernel_matches_plain_on_card():
                           ((1, 64, 100, 256), 20, 2), ((1, 9, 50, 64), 6, 3),
                           ((1, 12, 70, 40), 80, 4), ((1, 12, 70, 300), 4, 1),
                           ((1, 8, 40, 512), 6, 2), ((1, 10, 90, 40), 12, 5),
-                          ((2, 7, 75, 64), 20, 6)]:
+                          ((2, 7, 75, 64), 20, 6), ((3, 3, 45, 64), 4, 1),
+                          ((1, 5, 70, 256), 20, 2), ((3, 9, 50, 300), 6, 3),
+                          ((1, 56, 104, 256), 20, 2), ((1, 50, 100, 256), 4, 1)]:
         for dt, rtol, atol in ((torch.float32, 0, 1e-5),
                                (torch.bfloat16, 2.0 ** -7, 1e-6)):
             f1 = torch.randn(shape, generator=gen, device="cuda").to(dt)

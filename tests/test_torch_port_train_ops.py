@@ -5,7 +5,9 @@ schedule and optimizer held against vps_tpu's on the same numpy inputs.
 Sampler draws: both sides take the same seeded numpy priorities, the port's
 through ``vps_torch.core.sampler.uniform`` and JAX's through
 ``random_sample`` where ``vps_tpu.core.targets`` looks it up (patched in the
-test; no file of vps_tpu changes).
+test; no file of vps_tpu changes). The trainable set is checked in a
+one-test file of its own, ``test_torch_port_trainable.py`` (pytest-xdist's
+loadfile scheduler queues a one-test file after the files with several).
 """
 
 import numpy as np
@@ -25,18 +27,14 @@ from vps_tpu.ops.correlation import _correlation_xla
 from vps_tpu.ops.mask import crop_and_resize_indexed as j_crop
 from vps_tpu.ops.roi_align import multilevel_roi_align as j_roi_align
 from vps_tpu.train import optim as joptim
-from vps_tpu.utils.convert import convert_detector
 
-from test_full_graph_parity import build_sd
 from test_torch_port_threads import one_thread  # noqa: F401  (autouse)
 
 import vps_torch.core.sampler as tsampler
 from vps_torch import zoo
-from vps_torch.convert import _torch_key, state_dict_from_jax
 from vps_torch.core.assigner import max_iou_assign
 from vps_torch.core.sampler import _sample_by_priority
 from vps_torch.core.targets import anchor_target, proposal_target
-from vps_torch.models.detectors import PanopticFuseTrack
 from vps_torch.models.track_head import track_match_loss
 from vps_torch.ops import box as tbox
 from vps_torch.ops import losses as tlosses
@@ -396,34 +394,6 @@ def test_optimizer_matches_optax_chain():
             np.asarray(a), np.asarray(b), rtol=1e-6, atol=1e-7), back, jparams)
         assert opt.total_notfinite == int(jstate.total_notfinite)
     assert opt.total_notfinite == 1 and opt.count == 2
-
-
-def test_trainable_set_matches_jax_mask():
-    """The tiny detector's requires_grad set equals vps_tpu's trainable_mask
-    of the same weights, names mapped by state_dict_from_jax's rules."""
-    params, stats, _ = convert_detector(build_sd(np.random.RandomState(0)),
-                                        depth=18)
-    params = dict(params)
-    params["flownet2"] = {
-        n: {"Conv_0": {"kernel": np.zeros((3, 3, i, o), np.float32),
-                       "bias": np.zeros((o,), np.float32)}}
-        for n, i, o in (("c1", 6, 16), ("c2", 16, 16), ("pred", 16, 2))}
-    cfg = zoo.f32_compute_overrides(zoo.tiny_overrides(
-        zoo.fusetrack_model_cfg()))
-    cfg.pop("type")
-    det = PanopticFuseTrack(train_cfg=zoo.tiny_train_cfg(),
-                            test_cfg=zoo.fusetrack_test_cfg(), device="cpu",
-                            **cfg)
-    det.load_state_dict(state_dict_from_jax(params, stats), strict=True)
-    jmask = joptim.trainable_mask(params, frozen_stages=1)
-    flat = jax.tree_util.tree_flatten_with_path(jmask)[0]
-    jtrain = {_torch_key(tuple(k.key for k in path))[0]
-              for path, v in flat if v}
-    ours = {n for n, p in det.named_parameters() if p.requires_grad}
-    assert ours == jtrain
-    assert "backbone.layer1.0.conv1.weight" not in ours
-    assert "backbone.layer2.0.conv1.weight" in ours
-    assert not any(n.startswith("flownet2.") for n in ours)
 
 
 def test_checkpoint_refuses_another_model(tmp_path):

@@ -60,11 +60,45 @@
 //    and give zeros. Any B, W, C and s2; D <= 41. C % 8 == 0 with 16-byte
 //    aligned maps takes cp.async; any other C is staged element by element.
 //
-// f32 (the exact preset only; tensor cores would change the answer through
-// TF32): corr_f32, the SIMT kernel of the first port. One block = one output
-// row segment of 64 pixels for ONE displacement row, one thread per pixel,
-// channels staged through shared memory in chunks of 32, each thread
-// keeping its pixel's `steps` dx sums in registers.
+// f32 (the exact preset and every train step; tensor cores would change the
+// answer through TF32): corr_f32, a register-tiled band product on the CUDA
+// cores, f32 products and f32 sums. What bounds it on an H100: at
+// LiteFlowNetCorr's training shape (1, 200, 400, 256) md 4, bytes (190 MB,
+// 0.057 ms) and FMAs (1.66 G, 0.050 ms at 67 TF/s) nearly equally; FlowNetC
+// (1, 56, 104, 256) md 20 s2 2 is FMA-bound (0.020 ms). On the CUDA cores
+// the shared-memory pipe (one warp-wide 16-byte load per 4 clocks, against 4
+// warp-wide FMAs a clock) is the first wall, so the design counts FMAs per
+// shared load; the second is the re-reading of f2 from L2, so it counts
+// staged rows per output row:
+//  * A block owns S pixels (32 at s2 = 1; residue classes of s2, as the bf16
+//    route, else) of R output rows y + r s2 and walks every displacement
+//    row: D + R - 1 staged f2 rows serve all R. R = 4 where the grid stays
+//    large (LiteFlowNetCorr: 3 staged rows an output row), else 2 (FlowNetC
+//    at the training shape, whose grid would not fill the card). The
+//    block's output spans are written once, coalesced, from a tile in shared
+//    memory (where D^2 is too large, straight out).
+//  * A thread owns one row pair, one staged f2 row, P = 4 pixels of one
+//    residue class, a group of G dx (all 9 for LiteFlowNetCorr; 3 groups of
+//    7 for FlowNetC's 21) and a slice of every 32-channel chunk (4 slices
+//    with 2 rows, 2 with 4): 2 x P x G f32 sums; per 4 channels 2 P + P +
+//    G - 1 16-byte shared loads for 8 P G FMAs (20 loads for 288 FMAs at
+//    LiteFlowNetCorr). The slices are summed by shuffles once a pass. The
+//    16-byte quads of a staged column are XOR-swizzled by its tile, so the
+//    loads are free of bank conflicts.
+//  * f1 chunks of the R rows and f2 row chunks (S + 2 md columns) are staged
+//    by cp.async into a ring of 2-4 stages: the copies of the next unit run
+//    while one is multiplied. Where the threads or the ring cannot hold all
+//    staged rows (FlowNetC: 3 passes of 8), the rows go in passes.
+//  * What holds it above its bound (timing ablations, PERF.md): two floors
+//    of about the same size, the staging alone (L2 to shared memory) and
+//    the product alone (latency-bound: one block of 10 warps an SM, held
+//    there by the ring's shared memory and 168 registers a thread).
+//  * Edges: pixels past W, f2 columns outside the map and channels past C
+//    are staged as zeros; displacement rows outside the map are not staged
+//    and give zeros. Any B, H, W, C and s2; D <= 41. C % 4 == 0 with 16-byte
+//    aligned maps takes cp.async; any other C is staged element by element.
+//  * The result differs from the plain version only in the order of the f32
+//    sum.
 //
 // Backward (corr_backward; replaces the VJP of _correlation_xla that
 // vps_tpu/ops/correlation.py:_correlation_bwd takes, the backward half of
@@ -92,142 +126,7 @@
 
 namespace {
 
-// ---------------------------------------------------------------- f32 SIMT
-
-namespace simt {
-
-constexpr int TW = 64;  // output pixels per block, one thread each
-constexpr int CC = 32;  // channels staged per pass
-
-// Stage pixels [x_first, x_first + ncol) of one image row (pixel index `row`
-// of its x = 0) of an NHWC map, channels [c0, c0 + CC), into
-// dst[c * stride + col]; zero outside the map or past C. V = channels per
-// load: 1, or 4 (16 bytes) when C and the pointers allow it.
-template <int V>
-__device__ __forceinline__ void stage(float* dst, int stride, const float* __restrict__ src,
-                                      size_t row, bool row_ok, int x_first, int ncol,
-                                      int W, int C, int c0, int tx) {
-  constexpr int G = CC / V;  // loads per pixel
-  for (int i = tx; i < ncol * G; i += TW) {
-    const int c = (i % G) * V, col = i / G;
-    const int gx = x_first + col, gc = c0 + c;
-    float v[V];
-    if (row_ok && gx >= 0 && gx < W && gc < C) {
-      if constexpr (V == 1) {
-        v[0] = src[(row + gx) * C + gc];
-      } else {
-        const float4 q = *reinterpret_cast<const float4*>(src + (row + gx) * C + gc);
-        v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[(c + j) * stride + col] = v[j];
-  }
-}
-
-template <int MAXS, int V>
-__global__ void __launch_bounds__(TW)
-corr_f32(const float* __restrict__ f1, const float* __restrict__ f2, float* __restrict__ out,
-         int H, int W, int C, int md, int s2, int steps) {
-  extern __shared__ float smem[];
-  const int span = TW + 2 * md;  // f2 columns one row segment can touch
-  const int f1_stride = TW + 1;  // odd plane strides: conflict-free stores
-  const int f2_stride = span | 1;
-  float* f1s = smem;                   // [CC][f1_stride]
-  float* f2s = smem + CC * f1_stride;  // [CC][f2_stride]
-
-  const int tx = threadIdx.x;
-  const int x0 = blockIdx.x * TW;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z / steps;
-  const int iy = blockIdx.z % steps;
-  const int yy = y - md + iy * s2;  // f2 row of this displacement row
-  const bool row_ok = yy >= 0 && yy < H;
-
-  const size_t row1 = ((size_t)b * H + y) * W;  // pixel index of (b, y, 0)
-  const size_t row2 = ((size_t)b * H + (row_ok ? yy : 0)) * W;
-
-  float acc[MAXS];
-#pragma unroll
-  for (int i = 0; i < MAXS; ++i) acc[i] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += CC) {
-    stage<V>(f1s, f1_stride, f1, row1, true, x0, TW, W, C, c0, tx);
-    stage<V>(f2s, f2_stride, f2, row2, row_ok, x0 - md, span, W, C, c0, tx);
-    __syncthreads();
-    const int cn = min(CC, C - c0);
-    for (int c = 0; c < cn; ++c) {
-      const float a = f1s[c * f1_stride + tx];
-      const float* r = f2s + c * f2_stride + tx;
-#pragma unroll
-      for (int ix = 0; ix < MAXS; ++ix)
-        if (ix < steps) acc[ix] = fmaf(a, r[ix * s2], acc[ix]);
-    }
-    __syncthreads();
-  }
-
-  const int gx = x0 + tx;
-  if (gx < W) {
-    float* o = out + (row1 + gx) * (size_t)(steps * steps) + (size_t)iy * steps;
-    const float fc = (float)C;
-#pragma unroll
-    for (int ix = 0; ix < MAXS; ++ix)
-      if (ix < steps) o[ix] = acc[ix] / fc;
-  }
-}
-
-template <int MAXS, int V>
-cudaError_t launch(const void* f1, const void* f2, void* out, int B, int H, int W,
-                   int C, int md, int s2, int steps, cudaStream_t stream) {
-  const dim3 grid((W + TW - 1) / TW, H, B * steps);
-  const size_t smem = (size_t)CC * ((TW + 1) + ((TW + 2 * md) | 1)) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        corr_f32<MAXS, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  corr_f32<MAXS, V><<<grid, TW, smem, stream>>>(
-      static_cast<const float*>(f1), static_cast<const float*>(f2), static_cast<float*>(out),
-      H, W, C, md, s2, steps);
-  return cudaGetLastError();
-}
-
-template <int V>
-cudaError_t dispatch_steps(const void* f1, const void* f2, void* out, int B, int H,
-                           int W, int C, int md, int s2, cudaStream_t stream) {
-  const int steps = 2 * (md / s2) + 1;
-  if ((size_t)B * steps > 65535) return cudaErrorInvalidValue;
-  if (steps <= 9) return launch<9, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
-  if (steps <= 21) return launch<21, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
-  if (steps <= 41) return launch<41, V>(f1, f2, out, B, H, W, C, md, s2, steps, stream);
-  return cudaErrorInvalidValue;
-}
-
-cudaError_t dispatch(const void* f1, const void* f2, void* out, int B, int H, int W,
-                     int C, int md, int s2, cudaStream_t stream) {
-  const bool vec = (C % 4 == 0) && reinterpret_cast<size_t>(f1) % 16 == 0 &&
-                   reinterpret_cast<size_t>(f2) % 16 == 0;
-  return vec ? dispatch_steps<4>(f1, f2, out, B, H, W, C, md, s2, stream)
-             : dispatch_steps<1>(f1, f2, out, B, H, W, C, md, s2, stream);
-}
-
-}  // namespace simt
-
-// ------------------------------------------------------- bf16 tensor cores
-
-namespace tc {
-
-constexpr int THREADS = 256;  // 8 warps: 4 m-tiles x 2 groups
-constexpr int NG = 2;         // warp groups
-constexpr int KC = 64;        // channels per staged chunk
-constexpr int MAX_NCK = 4;    // f1 fragments in registers: C <= 256
-constexpr int ROWB = KC * 2;  // bytes per staged row: eight 16-byte chunks
-constexpr int MAX_STAGES = 8;
-constexpr int MAX_SMEM = 227 * 1024;
-constexpr int HALF_SMEM = 113 * 1024;  // two blocks an SM
+// ---------------------------------------------------- cp.async (both routes)
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -251,6 +150,339 @@ __device__ __forceinline__ void cp_wait(int n) {
     default: asm volatile("cp.async.wait_group 6;\n" ::); break;
   }
 }
+
+int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------- f32 SIMT
+
+namespace simt {
+
+constexpr int P = 4;          // pixels of a thread's tile: one residue class mod s2
+constexpr int CK = 32;        // channels a staged chunk
+constexpr int ROWB = CK * 4;  // bytes a staged column: eight 16-byte quads
+constexpr int MAX_THREADS = 384;
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_SMEM = 227 * 1024;
+
+struct Plan {
+  int nh;           // row pairs a block: 1 (rows y, y + s2) or 2 (4 rows, s2 apart)
+  int nres;         // residue classes mod s2 a block takes: min(s2, 4)
+  int rgroups;      // blocks a segment: ceil(s2 / nres)
+  int nt;           // tiles: nres * J, J tiles a residue class
+  int S;            // output pixels a block owns in each of its rows: nt * P
+  int span;         // image columns a segment spans: P * J * s2
+  int ng;           // dx groups of G
+  int nc;           // staged f2 columns a row: nres * (P * J + D - 1)
+  int rs;           // staged rows a row pair takes a pass
+  int srs;          // staged f2 rows a stage: rs + 2 (nh - 1)
+  int npass;        // passes over the D + 1 staged rows of a row pair
+  int threads;      // rs * nh * ng * nt * (4 / nh), rounded up to whole warps
+  int nst;          // ring stages
+  int stage_out;    // output tiles in shared memory (else stored straight out)
+  int stage_bytes;  // one ring stage: the f1 chunks of the rows, srs f2 row chunks
+  int smem;
+};
+
+// Byte key of staged column c: its 16-byte quads q sit at q ^ key. The 8
+// lanes of a 16-byte shared-load phase are 8 / NCS neighbouring tiles x NCS
+// channel slices, and slice cs reads quad cs + NCS k, so the slices of a
+// tile read one aligned block of NCS quads; the key, a multiple of NCS set
+// by the tile whose pixels the column holds (f1) or first feeds (f2), puts
+// the block of each of the 8 / NCS tiles elsewhere: 8 distinct bank groups.
+// pn = P * nres.
+template <int NCS>
+__device__ __forceinline__ int swz(int c, int pn, int nres) {
+  return ((((c / pn) * nres + c % nres) & (8 / NCS - 1)) * NCS) << 4;
+}
+
+// One step of a reduce-scatter over lanes l and l ^ lane_mask: the pair
+// sums elements 2 i (lane with !hi) and 2 i + 1 (hi) of their first M, into
+// acc[i]. Unrolled with constant indices, so acc stays in registers.
+template <int M>
+__device__ __forceinline__ void reduce_half(float* acc, bool hi, int lane_mask) {
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const float e0 = acc[2 * i], e1 = acc[2 * i + 1];
+    acc[i] = (hi ? e1 : e0) + __shfl_xor_sync(0xffffffffu, hi ? e0 : e1, lane_mask);
+  }
+}
+
+// A block owns S output pixels (nres residue classes of a segment) of R =
+// 2 NH output rows y0 + r s2 and walks every displacement row: f2 row
+// y0 - md + t s2 is displacement row t - r of row r, so D + R - 1 staged rows
+// serve all R. A thread owns one row pair (rows 2h, 2h + 1), one staged row
+// t = 2h + i (i <= D: displacement row i of row 2h and i - 1 of row 2h + 1),
+// one group of G dx, one tile of P pixels (x_t + s2 p, p < P) and one of
+// NCS = 4 / NH channel slices, and keeps 2 x P x G f32 sums: per 4 channels
+// it reads 2 P f1 and P + G - 1 f2 values with 16-byte shared loads for
+// 2 P G x 4 FMAs. At the end of a pass (all channels of its staged rows) the
+// NCS slices of a tile are summed by shuffles. Units (pass, 32-channel
+// chunk) are staged by cp.async into a ring.
+template <int G, int NH>
+__global__ void __launch_bounds__(MAX_THREADS)
+corr_f32(const float* __restrict__ f1, const float* __restrict__ f2, float* __restrict__ out,
+         int H, int W, int C, int md, int s2, int D, const Plan pl, int vec) {
+  extern __shared__ __align__(128) char smem[];
+  constexpr int NCS = 4 / NH;   // channel slices of a tile
+  constexpr int NQ = 8 / NCS;   // quads of a chunk a slice reads
+  constexpr int R = 2 * NH;     // output rows of a block
+  constexpr int N = 2 * P * G;  // sums: (row r, dx ix, pixel p) at (r G + ix) P + p
+  const int tid = threadIdx.x, cs = tid % NCS;
+  int rest = tid / NCS;
+  const int tile = rest % pl.nt;
+  rest /= pl.nt;
+  const int g = rest % pl.ng;  // dx group
+  rest /= pl.ng;
+  const int h = rest % NH, ii = rest / NH;  // row pair; staged row of the pass
+  const bool live = ii < pl.rs;             // else a thread that rounds up a warp
+  const int nres = pl.nres, pn = P * nres, S = pl.S;
+  const int rho = tile % nres, j = tile / nres;
+  const int seg = blockIdx.x / pl.rgroups;
+  const int rho0 = (blockIdx.x - seg * pl.rgroups) * nres;  // first residue class
+  const int x0 = seg * pl.span + rho0;  // image column of staged f1 column 0
+  const int b = blockIdx.z;
+  const int y0 = (blockIdx.y / s2) * R * s2 + blockIdx.y % s2;
+  if (y0 >= H) return;  // block-uniform
+  const int NR = D + R - 1, D2 = D * D;
+  const int nck = (C + CK - 1) / CK, U = pl.npass * nck;
+  const int f1_bytes = R * S * ROWB;
+  char* ring = smem;
+  float* osm = reinterpret_cast<float*>(smem + (size_t)pl.nst * pl.stage_bytes);
+
+  // Staged column c holds image column xb + c % nres + s2 (c / nres): the
+  // block's residue classes side by side (c = x - xb when nres = s2). Zeros
+  // outside the map, past C and for residues >= s2; rows outside the map are
+  // not staged (no thread reads them).
+  auto issue = [&](int u) {
+    if (u < U) {
+      const int pass = u / nck, q = tid & 7, gc = (u - pass * nck) * CK + 4 * q;
+      const int step = blockDim.x >> 3;
+      char* st = ring + (size_t)(u % pl.nst) * pl.stage_bytes;
+      // 16 bytes of image column x (residue res of the block) of row y
+      auto copy = [&](const float* img, int y, int x, int res, char* dst) {
+        const bool in = (unsigned)x < (unsigned)W && rho0 + res < s2;
+        const float* p = in ? img + (((size_t)b * H + y) * W + x) * C + gc : img;
+        if (vec) {
+          cp_async16(smem_u32(dst), p, in && gc < C);
+        } else {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) v[e] = (in && gc + e < C) ? p[e] : 0.f;
+          *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      };
+      for (int i = tid >> 3; i < R * S; i += step) {  // f1 of the R output rows
+        const int r = i / S, c = i - r * S, y = y0 + r * s2, res = c % nres;
+        if (y < H)
+          copy(f1, y, x0 + res + s2 * (c / nres), res,
+               st + i * ROWB + ((q << 4) ^ swz<NCS>(c, pn, nres)));
+      }
+      for (int c = tid >> 3; c < pl.nc; c += step) {  // f2: a column of every row
+        const int res = c % nres, x = x0 - md + res + s2 * (c / nres);
+        char* dst = st + f1_bytes + c * ROWB + ((q << 4) ^ swz<NCS>(c, pn, nres));
+        for (int rr = 0; rr < pl.srs; ++rr) {
+          const int t = pass * pl.rs + rr, y = y0 - md + t * s2;
+          if (t < NR && y >= 0 && y < H) copy(f2, y, x, res, dst + rr * pl.nc * ROWB);
+        }
+      }
+    }
+    cp_commit();  // possibly empty: keeps the group count uniform
+  };
+  for (int u = 0; u < pl.nst - 1; ++u) issue(u);
+
+  // this thread's columns in a stage, and their byte keys
+  const int c1 = rho + pn * j;                          // f1 column of pixel p: c1 + nres p
+  const int k1 = ((tile & (NQ - 1)) * NCS) << 4;        // every f1 column of the tile
+  const int gq = g * G;
+  const int c2 = rho + nres * (P * j + gq);             // f2 column of n = p + ix: c2 + nres n
+  const int nload = P + min(G, D - gq) - 1;             // f2 columns this group needs
+
+  float acc[N];
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] = 0.f;
+  for (int u = 0; u < U; ++u) {
+    cp_wait(pl.nst - 2);  // unit u has landed
+    __syncthreads();      // unit u visible to all; unit u - 1's stage free
+    issue(u + pl.nst - 1);
+    const int pass = u / nck;
+    const int i = pass * pl.rs + ii, yy = y0 - md + (2 * h + i) * s2;
+    if (live && i <= D && yy >= 0 && yy < H) {
+      const char* st = ring + (size_t)(u % pl.nst) * pl.stage_bytes;
+      const char* row1 = st + 2 * h * S * ROWB;
+      const char* row2 = st + f1_bytes + (2 * h + ii) * pl.nc * ROWB;
+#pragma unroll 1
+      for (int k = 0; k < NQ; ++k) {
+        const int kq = (cs + NCS * k) << 4;  // quad cs + NCS k
+        float4 a[2][P];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+#pragma unroll
+          for (int p = 0; p < P; ++p)
+            a[r][p] = *reinterpret_cast<const float4*>(row1 + (r * S + c1 + nres * p) * ROWB +
+                                                       (kq ^ k1));
+#pragma unroll
+        for (int n = 0; n < P + G - 1; ++n) {
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (n < nload) {
+            const int c = c2 + nres * n;
+            // swz<NCS>(c): the tile of c is tile + nres ((gq + n) / P)
+            const int key = (((tile + nres * ((gq + n) / P)) & (NQ - 1)) * NCS) << 4;
+            v = *reinterpret_cast<const float4*>(row2 + c * ROWB + (kq ^ key));
+          }
+#pragma unroll
+          for (int p = 0; p < P; ++p) {
+            const int ix = n - p;
+            if (ix < 0 || ix >= G) continue;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              float& s = acc[(r * G + ix) * P + p];
+              s = fmaf(a[r][p].x, v.x, s);
+              s = fmaf(a[r][p].y, v.y, s);
+              s = fmaf(a[r][p].z, v.z, s);
+              s = fmaf(a[r][p].w, v.w, s);
+            }
+          }
+        }
+      }
+    }
+    if (u - pass * nck == nck - 1) {  // the pass is done (block-uniform)
+      // sum the NCS channel slices (lanes cs = tid % NCS) by a
+      // reduce-scatter that leaves element NCS e + cs in acc[e]
+      reduce_half<N>(acc, cs & 1, 1);
+      if constexpr (NCS == 4) reduce_half<N / 2>(acc, cs & 2, 2);
+      const float fc = (float)C;
+#pragma unroll
+      for (int e = 0; e < N / NCS; ++e) {
+        // element NCS e + cs: pixel p, (r, ix) = (ri / G, ri % G)
+        const int p = (NCS * e) % P + cs, ri = (NCS * e) / P;
+        const int r = ri / G, ix = gq + ri % G, iy = i - r;
+        const int row = 2 * h + r, y = y0 + row * s2, x = x0 + rho + s2 * (P * j + p);
+        if (live && iy >= 0 && iy < D && ix < D && y < H && rho0 + rho < s2 && x < W) {
+          const float val = acc[e] / fc;
+          if (pl.stage_out)
+            osm[(row * S + c1 + nres * p) * D2 + iy * D + ix] = val;
+          else
+            out[(((size_t)b * H + y) * W + x) * D2 + iy * D + ix] = val;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[e] = 0.f;
+    }
+  }
+
+  if (pl.stage_out) {  // each output row's span of S D^2 values, coalesced
+    __syncthreads();
+    for (int r = 0; r < R; ++r) {
+      const int y = y0 + r * s2;
+      if (y >= H) break;
+      float* o = out + (((size_t)b * H + y) * W + x0) * D2;
+      const float* src = osm + r * S * D2;
+      const int n = min(S, W - x0) * D2;
+      for (int e = tid; e < n; e += blockDim.x) o[e] = src[e];
+    }
+  }
+}
+
+// Block geometry and shared memory of one launch; false if none fits.
+bool plan(int s2, int D, int G, int B, int H, int W, Plan* pl) {
+  if (s2 < 1 || D > 41) return false;
+  Plan q;
+  q.nres = s2 < 4 ? s2 : 4;
+  q.rgroups = (s2 + q.nres - 1) / q.nres;
+  const int J = (s2 == 1 ? 32 : 8) / P;  // S = 32 at s2 = 1, 8 nres else
+  q.nt = q.nres * J;
+  q.S = q.nt * P;
+  q.span = P * J * s2;
+  q.ng = (D + G - 1) / G;
+  q.nc = q.nres * (P * J + D - 1);
+  const int per_row = 4 * q.ng * q.nt;  // threads a staged row of every row pair
+  const int rs_max = min(D + 1, MAX_THREADS / per_row);
+  // 4 output rows a block where that leaves two blocks an SM (fewer staged
+  // rows an output row: (D + 3) / 4 against (D + 1) / 2), else 2; output
+  // tiles in shared memory where they fit beside a 2-stage ring; then as
+  // many staged rows a pass as the threads and the ring allow
+  const long long quads = (long long)B * ((W + q.span - 1) / q.span) * q.rgroups *
+                          ((H + 4 * s2 - 1) / (4 * s2)) * s2;
+  for (int nh = quads >= 2LL * sm_count() ? 2 : 1; nh >= 1; --nh) {
+    const int R = 2 * nh;
+    for (int so = q.rgroups == 1 ? 1 : 0; so >= 0; --so) {
+      const int tile = so ? R * q.S * D * D * 4 : 0;
+      for (int rs = rs_max; rs >= 1; --rs) {
+        const int npass = (D + 1 + rs - 1) / rs;
+        const int rows = (D + 1 + npass - 1) / npass;  // the passes balanced
+        const int srs = rows + 2 * (nh - 1);
+        const int stage = (R * q.S + srs * q.nc) * ROWB;
+        if (tile + 2 * stage > MAX_SMEM) continue;
+        q.nh = nh;
+        q.rs = rows;
+        q.srs = srs;
+        q.npass = npass;
+        q.threads = (rows * per_row + 31) / 32 * 32;
+        q.stage_out = so;
+        q.stage_bytes = stage;
+        q.nst = min(MAX_STAGES, (MAX_SMEM - tile) / stage);
+        q.smem = tile + q.nst * stage;
+        *pl = q;
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int G, int NH>
+cudaError_t launch(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                   int md, int s2, int D, const Plan& pl, bool vec, cudaStream_t stream) {
+  auto kernel = corr_f32<G, NH>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W + pl.span - 1) / pl.span * pl.rgroups,
+                  (H + 2 * NH * s2 - 1) / (2 * NH * s2) * s2, B);
+  kernel<<<grid, pl.threads, pl.smem, stream>>>(
+      static_cast<const float*>(f1), static_cast<const float*>(f2), static_cast<float*>(out),
+      H, W, C, md, s2, D, pl, (int)vec);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* f1, const void* f2, void* out, int B, int H, int W, int C,
+                     int md, int s2, cudaStream_t stream) {
+  const int D = 2 * (md / s2) + 1;
+  const int G = D <= 9 ? 9 : 7;  // LiteFlowNetCorr: its 9 dx; FlowNetC: 3 groups of 7
+  Plan pl;
+  if (!plan(s2, D, G, B, H, W, &pl)) return cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && reinterpret_cast<size_t>(f1) % 16 == 0 &&
+                   reinterpret_cast<size_t>(f2) % 16 == 0;
+  if (G == 9)
+    return pl.nh == 2 ? launch<9, 2>(f1, f2, out, B, H, W, C, md, s2, D, pl, vec, stream)
+                      : launch<9, 1>(f1, f2, out, B, H, W, C, md, s2, D, pl, vec, stream);
+  return pl.nh == 2 ? launch<7, 2>(f1, f2, out, B, H, W, C, md, s2, D, pl, vec, stream)
+                    : launch<7, 1>(f1, f2, out, B, H, W, C, md, s2, D, pl, vec, stream);
+}
+
+}  // namespace simt
+
+// ------------------------------------------------------- bf16 tensor cores
+
+namespace tc {
+
+constexpr int THREADS = 256;  // 8 warps: 4 m-tiles x 2 groups
+constexpr int NG = 2;         // warp groups
+constexpr int KC = 64;        // channels per staged chunk
+constexpr int MAX_NCK = 4;    // f1 fragments in registers: C <= 256
+constexpr int ROWB = KC * 2;  // bytes per staged row: eight 16-byte chunks
+constexpr int MAX_STAGES = 8;
+constexpr int MAX_SMEM = 227 * 1024;
+constexpr int HALF_SMEM = 113 * 1024;  // two blocks an SM
 
 __device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -518,17 +750,6 @@ corr_bf16_tc(const uint16_t* __restrict__ f1, const uint16_t* __restrict__ f2,
       }
     }
   }
-}
-
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      n = 132;
-  }
-  return n;
 }
 
 // Block geometry and shared memory of one launch; false if none fits.

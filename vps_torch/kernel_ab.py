@@ -9,11 +9,12 @@ wrappers: any earlier version whose public ``correlation`` and
 ``deform_conv2d_windowed`` take the same arguments can be compared, whatever
 its kernels' C interface. The processes run in the order earlier, current,
 current, earlier, on the same seeded inputs at the main path's shapes
-(1024x2048 frames, bf16 as at ``half-flow``). Each holds every result to the
-plain version first, then times the public function (CUDA-event medians,
-host time included). Prints one line per shape with all four times, the
-windowed DCN's sum over a frame's 12 launches, then the card as
-``nvidia-smi`` names it.
+(1024x2048 frames, bf16 as at ``half-flow``; the f32 correlation at both
+call sites of a train step and of the ``exact`` preset). Each holds every
+result to the plain version first, then times the public function
+(CUDA-event medians, host time included). Prints one line per shape with
+all four times, the windowed DCN's sum over a frame's 12 launches, then the
+card as ``nvidia-smi`` names it.
 """
 
 from __future__ import annotations
@@ -27,9 +28,15 @@ import sys
 from pathlib import Path
 
 H, W = 1024, 2048
-CORR_SITES = {  # name: (shape, md, stride2)
-    "liteflow": ((1, H // 4, W // 4, 256), 4, 1),
-    "flownetc": ((1, H // 16, W // 16, 256), 20, 2),
+CORR_SITES = {  # name: (shape, md, stride2, dtype)
+    "liteflow": ((1, H // 4, W // 4, 256), 4, 1, "bfloat16"),
+    "flownetc": ((1, H // 16, W // 16, 256), 20, 2, "bfloat16"),
+    # float32: both call sites of a train step (the 800x1600 crop) and of
+    # the exact preset (FlowNetC at flow_input_scale 1.0)
+    "train liteflow": ((1, 200, 400, 256), 4, 1, "float32"),
+    "train flownetc": ((1, 56, 104, 256), 20, 2, "float32"),
+    "exact liteflow": ((1, H // 4, W // 4, 256), 4, 1, "float32"),
+    "exact flownetc": ((1, H // 8, W // 8, 256), 20, 2, "float32"),
 }
 DCN_LEVELS = [(H // 4 >> i, W // 4 >> i) for i in range(4)]
 DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
@@ -60,15 +67,18 @@ def measure(seed: int) -> dict:
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
     times = {}
-    for name, (shape, md, s2) in CORR_SITES.items():
-        f1 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
-        f2 = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    for name, (shape, md, s2, dt) in CORR_SITES.items():
+        f1 = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
+        f2 = torch.randn(shape, generator=gen, device="cuda").to(getattr(torch, dt))
         want = correlation_reference(f1, f2, md, s2).float()
         got = correlation(f1, f2, md, s2).float()
-        if not bool(((got - want).abs() <= 1e-6 + 2.0 ** -7 * want.abs()).all()):
+        # chip_smoke.py's tolerances: bf16 one output ulp, f32 the sum's order
+        atol, rtol = (1e-6, 2.0 ** -7) if dt == "bfloat16" else (1e-5, 1e-5)
+        if not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
             raise AssertionError(f"correlation {name} disagrees with the plain version")
-        times[f"correlation {name} {shape} md={md} s2={s2} bf16"] = cuda_ms(
+        times[f"correlation {name} {shape} md={md} s2={s2} {dt}"] = cuda_ms(
             lambda: correlation(f1, f2, md, s2))
+        del f1, f2, want, got
     for cin, cout in DCN_CONVS:
         for h, w in DCN_LEVELS:
             x = torch.randn((1, h, w, cin), generator=gen, device="cuda").bfloat16()

@@ -14,8 +14,12 @@ Routes on the card, by dtype:
     segment walks all D displacement rows with its f1 segment in registers
     (staged with each f2 row instead where C > 256) and the f2 rows streamed
     in by cp.async.
-  * float32 (the ``exact`` preset and training): a SIMT kernel with f32
-    products, since the tensor cores would round its inputs to TF32.
+  * float32 (the ``exact`` preset and training): a register-tiled band
+    product on the CUDA cores with f32 products, since the tensor cores would
+    round its inputs to TF32. A block owns an output row segment of 2 or 4
+    rows, stride2 apart, and walks every displacement row; each thread keeps
+    the sums of 2 rows x 4 pixels x a group of dx of one staged f2 row in
+    registers, fed by 16-byte shared loads from a cp.async ring.
 
 When a gradient is needed (training: LiteFlowNetCorr's inputs are trained
 features), ``correlation`` runs inside ``_Correlation``, a
@@ -118,8 +122,8 @@ def _forward(f1, f2, max_displacement, stride2):
     b, h, w, c = f1.shape
     steps = _steps(max_displacement, stride2)
     bf16 = f1.dtype == torch.bfloat16
-    if h > 65535 or b * (1 if bf16 else steps) > 65535:
-        raise ValueError("correlation: grid too large (H or B*steps > 65535)")
+    if h > 65535 or b > 65535:
+        raise ValueError("correlation: grid too large (H or B > 65535)")
     lib = _lib()
     out = torch.empty((b, h, w, steps * steps), dtype=f1.dtype,
                       device=f1.device)
