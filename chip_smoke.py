@@ -382,7 +382,10 @@ def phase_kernels_correlation_backward():
     """Backward kernel vs correlation_backward_reference (autograd through
     the plain version): LiteFlowNetCorr at the 800x1600 training crop
     ((1, 200, 400, 256), md 4, f32 as trained, and bf16), FlowNetC's geometry
-    ((1, 64, 128, 256), md 20, s2 2) and ragged shapes. Tolerance, relative
+    ((1, 64, 128, 256), md 20, s2 2) and ragged shapes: B = 3 with H < md; W
+    not a multiple of the 16-pixel block; C = 300 (two channel chunks, the
+    second mostly zeros); D = 41; H not a multiple of the block's 4 rows, so
+    its last rows fall past the map; stride2 3 and 6. Tolerance, relative
     to the largest gradient (sums of D^2 terms in another order; elementwise
     bounds fail where the terms cancel): f32 1e-5 * max|ref|; bf16 one ulp
     of the largest, 2^-7 * max|ref| (both sum in f32 and round once). The
@@ -396,7 +399,9 @@ def phase_kernels_correlation_backward():
               for dt in ("float32", "bfloat16")]
     cases += [("ragged", shape, md, s2, dt)
               for shape, md, s2 in (((2, 13, 37, 100), 4, 1), ((1, 9, 50, 36), 7, 3),
-                                    ((1, 20, 30, 64), 96, 6))
+                                    ((1, 20, 30, 64), 96, 6), ((3, 3, 45, 64), 4, 1),
+                                    ((1, 50, 100, 256), 4, 1), ((1, 12, 70, 300), 4, 1),
+                                    ((1, 12, 70, 40), 80, 4), ((2, 61, 130, 256), 4, 1))
               for dt in ("float32", "bfloat16")]
     entry = None
     max_err = 0.0
@@ -429,6 +434,9 @@ def phase_kernels_correlation_backward():
         if name == "train" and dt == "float32":
             entry = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
         del f1, f2, g, got, want
+    print(f"kernel correlation_backward per train step (f32, 1 launch): "
+          f"ms={entry['ms']:.4f} bound_ms={entry['bound_ms']:.4f} ratio "
+          f"{entry['ms'] / entry['bound_ms']:.1f}x plain_ms={entry['plain_ms']:.4f}")
     return dict(name="correlation_backward", route="cuda",
                 source="vps_torch/csrc/correlation.cu",
                 replaces="vps_tpu/ops/correlation.py:213",

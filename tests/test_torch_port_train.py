@@ -258,8 +258,9 @@ def test_windowed_weight_cast_rebuilt_after_step():
 @pytest.mark.cuda
 def test_correlation_backward_kernel_matches_plain():
     """The backward kernel against autograd through the plain version, f32
-    and bf16, both call sites' geometries and a ragged one; through
-    ``correlation``'s autograd Function too."""
+    and bf16, both call sites' geometries and ragged ones (B = 3 with H < md,
+    W not a multiple of the pixel block, C = 300, D = 41, H not a multiple
+    of the block's rows); through ``correlation``'s autograd Function too."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA kernel)")
     from vps_torch.ops import (correlation, correlation_backward,
@@ -268,7 +269,9 @@ def test_correlation_backward_kernel_matches_plain():
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [((1, 50, 100, 256), 4, 1), ((1, 32, 64, 256), 20, 2),
-             ((2, 13, 37, 100), 4, 1), ((1, 9, 50, 36), 7, 3)]
+             ((2, 13, 37, 100), 4, 1), ((1, 9, 50, 36), 7, 3),
+             ((3, 3, 45, 64), 4, 1), ((1, 12, 70, 300), 4, 1),
+             ((1, 12, 70, 40), 80, 4), ((2, 61, 130, 256), 4, 1)]
     for shape, md, s2 in cases:
         d2 = (2 * (md // s2) + 1) ** 2
         for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)):

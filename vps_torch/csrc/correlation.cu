@@ -110,19 +110,48 @@
 // What bounds it on an H100: at LiteFlowNetCorr's training shape
 // (1, 200, 400, 256) f32, md 4, reading f1, f2 and g once and writing both
 // gradients moves 354 MB (0.106 ms at 3.35 TB/s) and the 6.6 GFLOP take
-// 0.099 ms at the 67 TF/s f32 peak: both, nearly equally. Both gradients are
-// gathers, so every output element is owned by one thread (no atomics, the
-// result is deterministic). A simple SIMT design: a block owns 32 pixels of
-// one row and 64 channels, stages per displacement row the feature row it
-// reads (over 32 + 2 md columns) and that row's D values of g in shared
-// memory, and each thread keeps 8 channels of one pixel in f32 registers.
-// Each staged feature value serves D products; the shared-memory reads (one
-// 16-byte load per 4 products) are what limits it, not device memory.
+// 0.099 ms at the 67 TF/s f32 peak: both, nearly equally. One launch, both
+// gradients, in one form: grad_f2 is grad_f1's with g read through the
+// mirrored index (feature row and column y - md + e + jy s2, x - md + e +
+// jx s2, weight g at that pixel, displacement D^2 - 1 - jy D - jx; e = 2 (md
+// mod s2)), so one band product serves both (the kernel's head comment).
+// Every output element is written by one thread: no atomics, deterministic.
+// A register-tiled band product on the CUDA cores, f32 products and sums
+// (the f32 policy forbids TF32; the bf16 instance stages bf16 and widens at
+// the shared load). What its design counts:
+//  * Shared loads per FMA: a warp-wide shared load costs about the same
+//    whether it is a 4-byte broadcast or 512 contiguous bytes (measured on
+//    an H100), so the design counts loads, not bytes. A warp owns 2 output
+//    rows x 4 pixels of one residue class mod s2, a lane 8 channels (2
+//    quads, lane and lane + 32: a warp reads 512 contiguous bytes of a
+//    staged column, no bank conflict and no swizzle): 64 f32 sums. A band
+//    column costs 2 feature and 2 weight loads (16-byte) for up to 64 FMAs;
+//    the weights of column n sit diagonally (wd[n][row][p] = w[row][p][n -
+//    p]), staged by the warp itself, so each is one broadcast load of 4.
+//  * Staged rows per output row: a block owns R = 4 rows (s2 apart) of 16
+//    pixels and 256 channels (128 where C <= 128, or where a ring for two
+//    blocks an SM does not fit 256: FlowNetC's geometry), so D + 3 staged
+//    feature rows serve 4 output rows; the band's ramps (the first and last
+//    P - 1 columns) issue only their products.
+//  * Overlap: feature rows are staged by cp.async (16 bytes, zeros outside
+//    the map) and the weights by 4-byte cp.async (plain loads for bf16)
+//    into a ring of up to 4 stages; outputs leave by streaming 16-byte
+//    stores (they would evict the staged rows from L2). 8 warps a block
+//    and 110 KB of shared memory, so two blocks share an SM and one's
+//    barriers, ramps and stores overlap the other's work.
+//  * What holds it above its bound (timing ablations, PERF.md): the
+//    product alone and the staging with the stores alone, of similar size.
+//  * Edges: any B, H, W, C and s2; D <= 41. Pixels past W, feature columns
+//    outside the map and channels past C stage zeros; rows outside the map
+//    are not staged. C % 4 (f32) or 8 (bf16) == 0 with 16-byte aligned maps
+//    takes cp.async; any other C is staged element by element.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -848,9 +877,26 @@ cudaError_t dispatch(const void* f1, const void* f2, void* out, int B, int H, in
 
 namespace bwd {
 
-constexpr int TX = 32;        // output pixels per block
-constexpr int CCH = 64;       // channels per block
-constexpr int THREADS = 256;  // TX pixels x 8 threads; a thread owns 8 channels
+constexpr int P = 4;           // pixels of a warp's tile: one residue class mod s2
+constexpr int RW = 2;          // output rows of a warp
+constexpr int MAX_WARPS = 8;   // 2 row pairs x 4 tiles
+constexpr int MAX_STAGES = 4;
+constexpr int MAX_SMEM = 227 * 1024;
+constexpr int HALF_SMEM = 113 * 1024;  // two blocks an SM
+
+struct Plan {
+  int nres;         // residue classes mod s2 a block takes: min(s2, 4)
+  int rgroups;      // blocks a segment: ceil(s2 / nres)
+  int nt;           // pixel tiles of a row pair: nres * J (4; 3 at s2 = 3)
+  int span;         // image columns a segment spans: P * J * s2
+  int ncol;         // staged feature columns a row: nres * (P * J + D - 1)
+  int R;            // output rows of a block, s2 apart: 2 or 4
+  int nck;          // channel chunks of 32 Q channels
+  int nst;          // ring stages
+  int feat_bytes;   // one staged feature row: ncol columns of 32 Q channels
+  int stage_bytes;  // + every warp's weights: (R / RW) nt (P + D - 1) RW P floats
+  int smem;
+};
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -860,180 +906,295 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(v);
 }
 
-// 16 bytes of T at p as floats: 4 (f32) or 8 (bf16) values
-__device__ __forceinline__ void load16(const float* p, float* v) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+// 4 channels of a staged column as f32: one 16-byte (f32) or 8-byte (bf16,
+// widened here) shared load
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* v) {
-  const uint4 q = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    v[2 * i] = __uint_as_float(w[i] << 16);
-    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(q.x << 16), __uint_as_float(q.x & 0xffff0000u),
+                     __uint_as_float(q.y << 16), __uint_as_float(q.y & 0xffff0000u));
 }
-
-// 4 consecutive outputs at p
-__device__ __forceinline__ void store4(float* p, const float* v, bool vec) {
-  if (vec) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = v[i];
-  }
+// 4 consecutive outputs with one 16-byte (f32) or 8-byte (bf16) store
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  __stcs(reinterpret_cast<float4*>(p), v);  // streaming: keeps the staged rows in L2
 }
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v, bool vec) {
-  if (vec) {
-    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-    uint2 q;
-    q.x = *reinterpret_cast<const uint32_t*>(&a);
-    q.y = *reinterpret_cast<const uint32_t*>(&b);
-    *reinterpret_cast<uint2*>(p) = q;
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = __float2bfloat16_rn(v[i]);
-  }
+__device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v.z, v.w);
+  __stcs(reinterpret_cast<uint2*>(p),
+         make_uint2(*reinterpret_cast<const uint32_t*>(&a), *reinterpret_cast<const uint32_t*>(&b)));
 }
 
-// Stage pixels [x_first, x_first + ncol) of one map row (`row`: pixel index
-// of its x = 0), channels [c0, c0 + CCH), into dst[col * CCH + c] as f32;
-// zero outside the map or past C. VEC: 16-byte loads (C a multiple of 16
-// bytes' worth of T, 16-byte aligned map).
-template <typename T, bool VEC>
-__device__ __forceinline__ void stage_feat(float* dst, const T* __restrict__ src, size_t row,
-                                           int x_first, int ncol, int W, int C, int c0) {
-  constexpr int V = VEC ? 16 / (int)sizeof(T) : 1;
-  constexpr int G = CCH / V;  // loads per pixel
-  for (int i = threadIdx.x; i < ncol * G; i += THREADS) {
-    const int col = i / G, c = (i % G) * V;
-    const int gx = x_first + col, gc = c0 + c;
-    float v[V];
-    if (gx >= 0 && gx < W && gc < C) {
-      if constexpr (VEC) {
-        load16(src + (row + gx) * C + gc, v);
-      } else {
-        v[0] = to_f(src[(row + gx) * C + gc]);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < V; ++j) dst[col * CCH + c + j] = v[j];
-  }
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
+  // src-size 0 fills the 4 bytes with zeros and reads nothing
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0));
 }
 
-// Stage g at pixels [x_first, x_first + ncol) of one row, the D
-// displacements [k0, k0 + D) of one displacement row, into dst[col * D + i].
-template <typename T>
-__device__ __forceinline__ void stage_g(float* dst, const T* __restrict__ g, size_t row,
-                                        int x_first, int ncol, int W, int D2, int k0, int D) {
-  for (int i = threadIdx.x; i < ncol * D; i += THREADS) {
-    const int col = i / D, ix = i % D;
-    const int gx = x_first + col;
-    dst[i] = (gx >= 0 && gx < W) ? to_f(g[(row + gx) * D2 + k0 + ix]) : 0.f;
-  }
+__device__ __forceinline__ void fma4(float4& a, float w, const float4& f) {
+  a.x = fmaf(w, f.x, a.x);
+  a.y = fmaf(w, f.y, a.y);
+  a.z = fmaf(w, f.z, a.z);
+  a.w = fmaf(w, f.w, a.w);
 }
 
-// Gradients of the cost volume, as gathers (every output element owned by
-// one thread: no atomics, deterministic):
-//   grad_f1[b,y,x,c] = (1/C) sum_k g[b,y,x,k] f2[b,y+dy,x+dx,c]
-//   grad_f2[b,y,x,c] = (1/C) sum_k g[b,y-dy,x-dx,k] f1[b,y-dy,x-dx,c]
-// The low bit of blockIdx.z picks which. A block owns TX pixels of one row
-// and CCH channels; per displacement row it stages the feature row it reads
-// (f2 at y+dy, or f1 at y-dy) over TX + 2 md columns and that row's D
-// values of g, then each thread sums its pixel's D products into 8 f32
-// accumulators.
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
+// Both input gradients in one form (grad_f2 is grad_f1's with g read through
+// the mirrored index; e = 0 for grad_f1, 2 (md mod s2) for grad_f2):
+//   out[y, x, c] = (1/C) sum_{jy, jx} w[y, x, jy, jx] feat[y - md + e + jy s2,
+//                                                          x - md + e + jx s2, c]
+//   grad_f1: feat = f2, w = g[y, x, jy D + jx]
+//   grad_f2: feat = f1, w = g[y - md + e + jy s2, x - md + e + jx s2,
+//                             D^2 - 1 - jy D - jx]
+// The low bit of blockIdx.z picks which. A block owns R output rows y0 + r s2
+// of S pixels (nres residue classes of a segment) and CB = 32 Q channels;
+// staged feature row t (row y0 - md + e + t s2) is displacement row jy = t - r
+// of output row r, so D + R - 1 staged rows serve all R. Warp (h, tile) owns
+// output rows 2h and 2h + 1 and P pixels x_t + s2 p of one residue class,
+// lane l channels 4 l + 128 q (q < Q / 4): RW x P x Q f32 sums. Per staged
+// row its band is the P + D - 1 staged columns n = p + jx; column n's
+// weights wd[n][row][p] = w[row][p][n - p] (zero off the band; not staged for
+// a row the staged row does not feed, whose products are skipped) are staged
+// by the warp itself, diagonally, so one column costs Q / 4 feature loads (a
+// warp reads 512 contiguous bytes: no bank conflict) and RW broadcast weight
+// loads for up to RW P Q FMAs.
+template <typename T, int Q>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 2)
 corr_backward(const T* __restrict__ g, const T* __restrict__ f1, const T* __restrict__ f2,
               T* __restrict__ gf1, T* __restrict__ gf2, int H, int W, int C, int md, int s2,
-              int D) {
-  extern __shared__ float smem[];
-  const int span = TX + 2 * md;
-  float* fs = smem;               // [span][CCH]
-  float* gs = smem + span * CCH;  // [span][D]
+              int D, const Plan pl, int vec) {
+  extern __shared__ __align__(128) char smem[];
+  constexpr int NQ = Q / 4;                     // quads of a lane
+  constexpr int CB = 32 * Q;                    // channels of a chunk
+  constexpr int COLB = CB * (int)sizeof(T);     // bytes of a staged column
+  constexpr int V = 16 / (int)sizeof(T);        // elements of a 16-byte copy
+  constexpr int CPC = COLB / 16;                // 16-byte copies of a column
+  constexpr int WN = RW * P;                    // weights of a band column
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tile = warp % pl.nt, h = warp / pl.nt;
+  const int nres = pl.nres, rho = tile % nres, j = tile / nres;
   const bool grad2 = blockIdx.z & 1;
-  const int nck = (C + CCH - 1) / CCH;
-  const int z = blockIdx.z >> 1;
-  const int b = z / nck;
-  const int c0 = (z % nck) * CCH;
-  const int x0 = blockIdx.x * TX;
-  const int y = blockIdx.y;
-  const int D2 = D * D;
-  const int px = threadIdx.x >> 3, cq = threadIdx.x & 7;
+  const int z = blockIdx.z >> 1, b = z / pl.nck, c0 = (z - b * pl.nck) * CB;
+  const int seg = blockIdx.x / pl.rgroups;
+  const int rho0 = (blockIdx.x - seg * pl.rgroups) * nres;  // first residue class
+  const int R = pl.R;
+  const int y0 = (blockIdx.y / s2) * R * s2 + blockIdx.y % s2;
+  if (y0 >= H) return;  // block-uniform
+  const int e = grad2 ? 2 * (md % s2) : 0;
+  const int xb = seg * pl.span + rho0 - md + e;  // image column of staged column 0
+  const int NB = P + D - 1, D2 = D * D, U = D + R - 1;
   const T* feat = grad2 ? f1 : f2;
+  const int yr = y0 + RW * h * s2;                          // output row 2h (2h + 1: + s2)
+  const int px = seg * pl.span + rho0 + rho + s2 * P * j;  // pixel p: px + s2 p
+  const bool res_ok = rho0 + rho < s2;
 
-  float acc[8];
+  // Unit t: staged feature row t (warp w stages columns w, w + nwarps, ...;
+  // staged column c holds image column xb + c % nres + s2 (c / nres), zeros
+  // outside the map, past C and for residues >= s2) and each warp's diagonal
+  // weights of that row. Rows outside the map are not staged (no warp reads
+  // them). Lane l stages weights i = l + 32 k: row wr = (l / P) % RW and
+  // pixel wp = l % P (fixed), jx = l / WN - wp + (32 / WN) k.
+  const int nwarps = blockDim.x >> 5;
+  const int sq = nwarps / nres, sr = nwarps - sq * nres;  // column step, as (c / nres, c % nres)
+  const int cq0 = warp / nres, cr0 = warp - cq0 * nres;   // column warp, likewise
+  const int wp = lane % P, wr = (lane / P) % RW, wx = px + s2 * wp;
+  const int wy = yr + wr * s2;  // this lane's weight row and pixel
+  // grad_f1: g[wy, wx, jy D + jx]; grad_f2: g[fy, xc, D^2 - 1 - jy D - jx] at
+  // xc = wx - md + e + jx s2; jx = jx0 + KS k for the lane's k-th weight
+  constexpr int KS = 32 / WN;
+  const int jx0 = lane / WN - wp, xc0 = wx - md + e + jx0 * s2;
+  const T* gw = grad2 ? g + ((ptrdiff_t)b * H * W + xc0) * D2 + D2 - 1 - jx0
+                      : g + (((ptrdiff_t)b * H + wy) * W + wx) * D2 + jx0;
+  const ptrdiff_t gstep = grad2 ? (ptrdiff_t)KS * s2 * D2 - KS : KS;
+  const bool wok = res_ok && wy < H && (grad2 || wx < W);
+  auto issue = [&](int t, int stage) {
+    const int fy = y0 - md + e + t * s2;
+    if (t < U && fy >= 0 && fy < H) {
+      char* st = smem + (size_t)stage * pl.stage_bytes;
+      const T* rowp = feat + ((size_t)b * H + fy) * W * C;
+      int cq = cq0, cr = cr0;
+      for (int col = warp; col < pl.ncol; col += nwarps) {
+        const int x = xb + cr + s2 * cq;
+        const bool in = (unsigned)x < (unsigned)W && rho0 + cr < s2;
+        const T* src = rowp + (size_t)x * C;
+        char* dst = st + col * COLB;
+        for (int k = lane; k < CPC; k += 32) {
+          const int gc = c0 + k * V;
+          if (vec) {
+            const bool ok = in && gc < C;
+            cp_async16(smem_u32(dst + k * 16), ok ? src + gc : rowp, ok);
+          } else {
+            __align__(16) T v[V];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-
-  for (int iy = 0; iy < D; ++iy) {
-    const int dy = -md + iy * s2;
-    const int fy = grad2 ? y - dy : y + dy;  // the feature row read
-    if (fy < 0 || fy >= H) continue;         // block-uniform
-    __syncthreads();                         // the last row's reads are done
-    stage_feat<T, VEC>(fs, feat, ((size_t)b * H + fy) * W, x0 - md, span, W, C, c0);
-    if (grad2)
-      stage_g(gs, g, ((size_t)b * H + fy) * W, x0 - md, span, W, D2, iy * D, D);
-    else
-      stage_g(gs, g, ((size_t)b * H + y) * W, x0, TX, W, D2, iy * D, D);
-    __syncthreads();
-    for (int ix = 0; ix < D; ++ix) {
-      // window column of the term: x + dx (grad_f1) or x - dx (grad_f2)
-      const int j = grad2 ? px + 2 * md - ix * s2 : px + ix * s2;
-      const float gv = gs[(grad2 ? j : px) * D + ix];
-      const float* r = fs + j * CCH + cq * 4;
-      const float4 a = *reinterpret_cast<const float4*>(r);
-      const float4 e = *reinterpret_cast<const float4*>(r + 32);
-      acc[0] = fmaf(gv, a.x, acc[0]);
-      acc[1] = fmaf(gv, a.y, acc[1]);
-      acc[2] = fmaf(gv, a.z, acc[2]);
-      acc[3] = fmaf(gv, a.w, acc[3]);
-      acc[4] = fmaf(gv, e.x, acc[4]);
-      acc[5] = fmaf(gv, e.y, acc[5]);
-      acc[6] = fmaf(gv, e.z, acc[6]);
-      acc[7] = fmaf(gv, e.w, acc[7]);
+            for (int q = 0; q < V; ++q) v[q] = (in && gc + q < C) ? src[gc + q] : from_f<T>(0.f);
+            *reinterpret_cast<uint4*>(dst + k * 16) = *reinterpret_cast<const uint4*>(v);
+          }
+        }
+        cr += sr;
+        cq += sq;
+        if (cr >= nres) {
+          cr -= nres;
+          ++cq;
+        }
+      }
+      // the weights of this lane's row, if the staged row feeds it (no
+      // product reads those of a row it does not feed)
+      const int jy = t - RW * h - wr;
+      if (wok && jy >= 0 && jy < D) {
+        float* wd = reinterpret_cast<float*>(st + pl.feat_bytes) + warp * NB * WN;
+        const T* gp = gw + (grad2 ? (ptrdiff_t)fy * W * D2 - jy * D : (ptrdiff_t)jy * D);
+        int jx = jx0, xc = xc0;
+        for (int i = lane; i < NB * WN; i += 32, jx += KS, xc += KS * s2, gp += gstep) {
+          const bool ok = jx >= 0 && jx < D && (!grad2 || (unsigned)xc < (unsigned)W);
+          if constexpr (sizeof(T) == 4) {
+            cp_async4(smem_u32(wd + i), ok ? gp : g, ok);
+          } else {
+            wd[i] = ok ? to_f(*gp) : 0.f;
+          }
+        }
+      }
     }
+    cp_commit();  // possibly empty: keeps the group count uniform
+  };
+  for (int t = 0; t < pl.nst - 1; ++t) issue(t, t);
+
+  float4 acc[RW][P][NQ];
+#pragma unroll
+  for (int r = 0; r < RW; ++r)
+#pragma unroll
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) acc[r][p][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int cstep = nres * COLB;                   // bytes between band columns
+  const int cfirst = (rho + nres * P * j) * COLB;  // band column 0
+  int stage = 0, next = pl.nst - 1;  // ring stages of units t and t + nst - 1
+  for (int t = 0; t < U; ++t) {
+    cp_wait(pl.nst - 2);  // unit t has landed
+    __syncthreads();      // unit t visible to all; unit t - 1's stage free
+    issue(t + pl.nst - 1, next);
+    next = next + 1 == pl.nst ? 0 : next + 1;
+    const int jy = t - RW * h, fy = y0 - md + e + t * s2;
+    // rows 2h and 2h + 1 take displacement rows jy and jy - 1 of staged row t
+    const bool a0 = jy >= 0 && jy < D && yr < H;
+    const bool a1 = jy >= 1 && jy <= D && yr + s2 < H;
+    if ((a0 || a1) && fy >= 0 && fy < H) {  // warp-uniform
+      const char* st = smem + (size_t)stage * pl.stage_bytes;
+      const char* fb = st + cfirst + lane * 4 * (int)sizeof(T);
+      const float* wd = reinterpret_cast<const float*>(st + pl.feat_bytes) + warp * NB * WN;
+      // the band of the active rows (ROWS: bit r for row r) in three parts, so
+      // that only the products of the ramps' pixels issue: n < P - 1 feeds
+      // pixels p <= n; P - 1 <= n < D every pixel; n = D - 1 + m (m >= 1)
+      // pixels p >= m
+      auto band = [&](auto rows) {
+        constexpr int ROWS = decltype(rows)::value;
+        auto column = [&](int n, int plo, int phi) {
+          const T* c = reinterpret_cast<const T*>(fb + n * cstep);
+          float4 f[NQ];
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) f[q] = ld4(c + 128 * q);
+#pragma unroll
+          for (int r = 0; r < RW; ++r) {
+            if (!(ROWS >> r & 1)) continue;
+            const float4 w4 = *reinterpret_cast<const float4*>(wd + n * WN + r * P);
+            const float w[P] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+            for (int p = 0; p < P; ++p)
+              if (p >= plo && p <= phi)
+#pragma unroll
+                for (int q = 0; q < NQ; ++q) fma4(acc[r][p][q], w[p], f[q]);
+          }
+        };
+#pragma unroll
+        for (int n = 0; n < P - 1; ++n) column(n, 0, n);
+#pragma unroll 1
+        for (int n = P - 1; n < D; ++n) column(n, 0, P - 1);
+#pragma unroll
+        for (int m = 1; m < P; ++m)
+          if (D - 1 + m >= P - 1) column(D - 1 + m, m, P - 1);  // else: the first part's
+      };
+      if (a0 && a1)
+        band(std::integral_constant<int, 3>());
+      else if (a0)
+        band(std::integral_constant<int, 1>());
+      else
+        band(std::integral_constant<int, 2>());
+    }
+    stage = stage + 1 == pl.nst ? 0 : stage + 1;
   }
 
-  const int gx = x0 + px;
-  if (gx >= W) return;
-  T* out = (grad2 ? gf2 : gf1) + (((size_t)b * H + y) * W + gx) * C;
+  if (!res_ok) return;
   const float fc = (float)C;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int c = c0 + h * 32 + cq * 4;
-    float v[4];
+  for (int r = 0; r < RW; ++r) {
+    if (yr + r * s2 >= H) break;
+    T* out = (grad2 ? gf2 : gf1) + ((size_t)b * H + yr + r * s2) * W * C;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = acc[h * 4 + i] / fc;
-    if (c + 3 < C) {
-      store4(out + c, v, VEC);
-    } else {
-      for (int i = 0; i < 4 && c + i < C; ++i) out[c + i] = from_f<T>(v[i]);
+    for (int p = 0; p < P; ++p) {
+      const int x = px + s2 * p;
+      if (x >= W) break;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int c = c0 + 128 * q + 4 * lane;
+        const float4 a = acc[r][p][q];
+        const float4 v = make_float4(a.x / fc, a.y / fc, a.z / fc, a.w / fc);
+        T* o = out + (size_t)x * C + c;
+        if (vec && c + 3 < C) {
+          st4(o, v);
+        } else {
+          const float sv[4] = {v.x, v.y, v.z, v.w};
+          for (int i = 0; i < 4 && c + i < C; ++i) o[i] = from_f<T>(sv[i]);
+        }
+      }
     }
   }
 }
 
-template <typename T, bool VEC>
-cudaError_t launch(const void* g, const void* f1, const void* f2, void* gf1, void* gf2,
-                   int B, int H, int W, int C, int md, int s2, int D, cudaStream_t stream) {
-  const int nck = (C + CCH - 1) / CCH;
-  if ((size_t)B * nck * 2 > 65535) return cudaErrorInvalidValue;
-  const dim3 grid((W + TX - 1) / TX, H, B * nck * 2);
-  const size_t smem = (size_t)(TX + 2 * md) * (CCH + D) * sizeof(float);
-  auto kernel = corr_backward<T, VEC>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+// Block geometry and shared memory of one launch; false if none fits.
+bool plan(int Q, int esize, int budget, int C, int s2, int D, int B, int H, int W, Plan* pl) {
+  if (s2 < 1 || D > 41) return false;
+  Plan q;
+  q.nres = s2 < 4 ? s2 : 4;
+  q.rgroups = (s2 + q.nres - 1) / q.nres;
+  const int J = q.nres == 3 ? 1 : 4 / q.nres;  // 16 pixels a row (12 at s2 = 3)
+  q.nt = q.nres * J;
+  q.span = P * J * s2;
+  q.ncol = q.nres * (P * J + D - 1);
+  q.nck = (C + 32 * Q - 1) / (32 * Q);
+  if ((long long)B * q.nck * 2 > 65535) return false;
+  q.feat_bytes = q.ncol * 32 * Q * esize;
+  const long long cols = (long long)B * q.nck * 2 * ((W + q.span - 1) / q.span) * q.rgroups;
+  // 4 output rows a block (3 staged rows an output row at D = 9, against
+  // 5 with 2) where the grid still fills the card, else 2; a ring of at
+  // least 2 stages in the budget of shared memory
+  for (int R = 4; R >= RW; R /= 2) {
+    const long long blocks = cols * ((H + R * s2 - 1) / (R * s2)) * s2;
+    if (R > RW && blocks < 2 * sm_count()) continue;
+    const int stage = q.feat_bytes + R * q.nt * (P + D - 1) * P * 4;
+    if (2 * stage > budget) continue;
+    q.R = R;
+    q.stage_bytes = stage;
+    q.nst = min(MAX_STAGES, budget / stage);
+    q.smem = q.nst * stage;
+    *pl = q;
+    return true;
   }
-  kernel<<<grid, THREADS, smem, stream>>>(
+  return false;
+}
+
+template <typename T, int Q>
+cudaError_t launch(const void* g, const void* f1, const void* f2, void* gf1, void* gf2,
+                   int B, int H, int W, int C, int md, int s2, int D, const Plan& pl,
+                   bool vec, cudaStream_t stream) {
+  auto kernel = corr_backward<T, Q>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((W + pl.span - 1) / pl.span * pl.rgroups,
+                  (H + pl.R * s2 - 1) / (pl.R * s2) * s2, B * pl.nck * 2);
+  kernel<<<grid, 32 * pl.R / RW * pl.nt, pl.smem, stream>>>(
       static_cast<const T*>(g), static_cast<const T*>(f1), static_cast<const T*>(f2),
-      static_cast<T*>(gf1), static_cast<T*>(gf2), H, W, C, md, s2, D);
+      static_cast<T*>(gf1), static_cast<T*>(gf2), H, W, C, md, s2, D, pl, (int)vec);
   return cudaGetLastError();
 }
 
@@ -1041,14 +1202,21 @@ template <typename T>
 cudaError_t dispatch(const void* g, const void* f1, const void* f2, void* gf1, void* gf2,
                      int B, int H, int W, int C, int md, int s2, cudaStream_t stream) {
   const int D = 2 * (md / s2) + 1;
-  if (D > 41 || md > 96) return cudaErrorInvalidValue;
   constexpr int V = 16 / (int)sizeof(T);
   const bool vec = C % V == 0 && reinterpret_cast<size_t>(f1) % 16 == 0 &&
                    reinterpret_cast<size_t>(f2) % 16 == 0 &&
                    reinterpret_cast<size_t>(gf1) % 16 == 0 &&
                    reinterpret_cast<size_t>(gf2) % 16 == 0;
-  return vec ? launch<T, true>(g, f1, f2, gf1, gf2, B, H, W, C, md, s2, D, stream)
-             : launch<T, false>(g, f1, f2, gf1, gf2, B, H, W, C, md, s2, D, stream);
+  // two blocks an SM (one's barriers and stores overlap the other's work)
+  // before one; 256 channels a block where C needs them, else 128
+  Plan pl;
+  for (const int budget : {HALF_SMEM, MAX_SMEM}) {
+    if (C > 128 && plan(8, sizeof(T), budget, C, s2, D, B, H, W, &pl))
+      return launch<T, 8>(g, f1, f2, gf1, gf2, B, H, W, C, md, s2, D, pl, vec, stream);
+    if (plan(4, sizeof(T), budget, C, s2, D, B, H, W, &pl))
+      return launch<T, 4>(g, f1, f2, gf1, gf2, B, H, W, C, md, s2, D, pl, vec, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace bwd

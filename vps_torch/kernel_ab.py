@@ -10,11 +10,13 @@ wrappers: any earlier version whose public ``correlation`` and
 its kernels' C interface. The processes run in the order earlier, current,
 current, earlier, on the same seeded inputs at the main path's shapes
 (1024x2048 frames, bf16 as at ``half-flow``; the f32 correlation at both
-call sites of a train step and of the ``exact`` preset). Each holds every
-result to the plain version first, then times the public function
-(CUDA-event medians, host time included). Prints one line per shape with
-all four times, the windowed DCN's sum over a frame's 12 launches, then the
-card as ``nvidia-smi`` names it.
+call sites of a train step and of the ``exact`` preset; the correlation
+backward, ``correlation_backward``, at a train step's LiteFlowNetCorr shape in
+f32 and bf16 and at FlowNetC's geometry in f32). Each holds every result to
+the plain version first, then times the public function (CUDA-event
+medians, host time included). Prints one line per shape with all four
+times, the windowed DCN's sum over a frame's 12 launches, then the card as
+``nvidia-smi`` names it.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ CORR_SITES = {  # name: (shape, md, stride2, dtype)
     "exact liteflow": ((1, H // 4, W // 4, 256), 4, 1, "float32"),
     "exact flownetc": ((1, H // 8, W // 8, 256), 20, 2, "float32"),
 }
+BACKWARD_SITES = {  # name: (shape, md, stride2, dtype)
+    "train liteflow": ((1, 200, 400, 256), 4, 1, "float32"),
+    "train liteflow bf16": ((1, 200, 400, 256), 4, 1, "bfloat16"),
+    "flownetc": ((1, H // 16, W // 16, 256), 20, 2, "float32"),
+}
 DCN_LEVELS = [(H // 4 >> i, W // 4 >> i) for i in range(4)]
 DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
 DCN_PREFIX = "deform_conv_windowed"
@@ -47,7 +54,8 @@ def measure(seed: int) -> dict:
     """Times of the importable ``vps_torch``'s kernels, by case name."""
     import torch
 
-    from vps_torch.ops import correlation, correlation_reference
+    from vps_torch.ops import (correlation, correlation_backward,
+                               correlation_backward_reference, correlation_reference)
     from vps_torch.ops.deform_conv import (deform_conv2d_windowed,
                                            deform_conv2d_windowed_reference)
 
@@ -79,6 +87,21 @@ def measure(seed: int) -> dict:
         times[f"correlation {name} {shape} md={md} s2={s2} {dt}"] = cuda_ms(
             lambda: correlation(f1, f2, md, s2))
         del f1, f2, want, got
+    for name, (shape, md, s2, dt) in BACKWARD_SITES.items():
+        d = 2 * (md // s2) + 1
+        f1, f2, g = (torch.randn(sh, generator=gen, device="cuda").to(getattr(torch, dt))
+                     for sh in (shape, shape, shape[:3] + (d * d,)))
+        # chip_smoke.py's tolerances, relative to the largest gradient
+        rel = 2.0 ** -7 if dt == "bfloat16" else 1e-5
+        for got, want in zip(correlation_backward(g, f1, f2, md, s2),
+                             correlation_backward_reference(g, f1, f2, md, s2)):
+            if float((got.float() - want.float()).abs().max()) > rel * float(
+                    want.float().abs().max()):
+                raise AssertionError(f"correlation_backward {name} disagrees with the "
+                                     "plain version")
+        times[f"correlation_backward {name} {shape} md={md} s2={s2} {dt}"] = cuda_ms(
+            lambda: correlation_backward(g, f1, f2, md, s2))
+        del f1, f2, g
     for cin, cout in DCN_CONVS:
         for h, w in DCN_LEVELS:
             x = torch.randn((1, h, w, cin), generator=gen, device="cuda").bfloat16()

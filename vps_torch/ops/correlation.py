@@ -24,9 +24,13 @@ Routes on the card, by dtype:
 When a gradient is needed (training: LiteFlowNetCorr's inputs are trained
 features), ``correlation`` runs inside ``_Correlation``, a
 ``torch.autograd.Function`` whose backward is a second kernel,
-``correlation_backward``: both input gradients as gathers, f32 sums, f32 or
-bf16 in and out. Without a gradient (inference, FlowNetC under no_grad)
-autograd is bypassed. On the CPU the plain version runs, and autograd goes
+``correlation_backward``: both input gradients in one launch, each a
+register-tiled band product on the CUDA cores (f32 products and sums, f32 or
+bf16 in and out, every output written by one thread: deterministic). A
+block owns 4 output rows of 16 pixels and stages every feature row the 4
+share once, by cp.async into a ring; each thread keeps the sums of 2 rows x
+4 pixels x 8 channels, and two blocks share an SM. Without a gradient
+(inference, FlowNetC under no_grad) autograd is bypassed. On the CPU the plain version runs, and autograd goes
 through it (``correlation_backward_reference``).
 """
 
