@@ -29,12 +29,27 @@ Phases, each printing its own line of numbers:
                  it, step 1's forward twice, compared point by point (where
                  the two part, the op that is not deterministic); after it,
                  one step split and profiled by vps_torch.profile.
+     fuse     -- PanopticFuse (no track head) as "main": 2 correlation
+                 launches a frame, object ids the running count of each
+                 frame's valid dets, the track state untouched.
+     track    -- PanopticTrack (no flow, no fuse neck) as "main": no
+                 correlation launch, track ids that carry across frames.
+     aug      -- FuseTrack predict_aug, each frame and its flip on one
+                 canvas, 3 frames: 2 correlation launches a variant. Before
+                 it, the card form of tests/test_aug_test.py:54 (one
+                 identity variant against predict).
+     ohem train -- "train" with the RCNN sampler OHEM (num 512), 1 warm-up
+                 and 3 timed steps.
   4. small    -- the tiny `exact` model on a 64x128 clip on the card against
                  the same model's plain CPU path: equal detections and keep
-                 sets, >= 0.999 semantic/panoptic agreement; then the same
-                 with `dcn_window = 4`; then the tiny model's loss terms and
-                 selection-free gradients on the card against the CPU path,
-                 same weights, sampler draws and discrete choices.
+                 sets, >= 0.999 semantic/panoptic agreement; the same with
+                 `dcn_window = 4`, for PanopticFuse and PanopticTrack, with
+                 the fuse neck's `refine_type='att'`, and for predict_aug
+                 over 3 variants (identity, flip, half scale); then the
+                 tiny model's loss terms and selection-free gradients on
+                 the card against the CPU path, same weights, sampler draws
+                 and discrete choices, with the RCNN sampler random and
+                 OHEM.
   5. dataset  -- the user's workflow from files: the synthetic Cityscapes-VPS
                  fixture at 1024x2048 and its GT (the repo's prepare_data
                  scripts), vps_torch.tools.train on the port's
@@ -43,11 +58,15 @@ Phases, each printing its own line of numbers:
                  process; the train loader alone with 0 and 2 workers; fails
                  on a non-finite loss, a skipped step, a frame without an
                  artifact, VPQ outside [0, 100], the GT not scoring 100
-                 against itself, or a kernel that did not launch.
+                 against itself, or a kernel that did not launch; then
+                 tools.test_vpq --aug (each frame and its flip) on the same
+                 checkpoint, scored by tools.eval_vpq.
 Each path is driven with every launch count set to 0 just before it and read
-just after. Then a `kernels` JSON line, the nvidia-smi line and, last, the
-result line {"ok": true, "device": {...}}. Any failure raises: exit code
-!= 0, no result.
+just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
+corr_backward, dcw_fused: each with the launches of its own path and
+``launches_by_path``), the nvidia-smi line and, last, the result line
+{"ok": true, "device": {...}}. Any failure raises: exit code != 0, no
+result.
 TF32 is off for matmuls and convolutions (vps_torch.utils.numerics.f32_policy,
 printed first): float32 work runs in full float32, as the JAX reference
 computes it.
@@ -84,6 +103,10 @@ DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
 # (the 1/4 FPN level)
 TRAIN_H, TRAIN_W, MAX_GT = 800, 1600, 100
 TRAIN_STEPS = 6
+# the "ohem train" path: the RCNN sampler OHEM, as mmdet's OHEM configs set
+# it, 1 warm-up + 3 timed steps
+OHEM = dict(type="OHEMSampler", num=512, pos_fraction=0.25)
+OHEM_STEPS = 4
 TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
 # the Runner's checkpoints go to a temporary directory in here (git-ignored)
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs")
@@ -238,11 +261,11 @@ def phase_kernels_correlation():
               for shape, md, s2 in (((3, 3, 45, 64), 4, 1), ((1, 5, 70, 256), 20, 2),
                                     ((3, 9, 50, 300), 6, 3), ((1, 12, 70, 40), 80, 4))
               for dt in ("bfloat16", "float32")]
-    max_err = 0.0
+    max_err = {"bfloat16": 0.0, "float32": 0.0}
     per_frame = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
     per_step = dict(per_frame)
     per_exact = dict(per_frame)  # the exact preset's f32 frame
-    bounds = []
+    bounds = {"frame": [], "step": []}
     for name, shape, md, s2, dt in cases:
         dtype = getattr(torch, dt)
         f1 = torch.randn(shape, generator=gen, device="cuda").to(dtype)
@@ -254,7 +277,7 @@ def phase_kernels_correlation():
         rtol, atol = (2.0 ** -7, 1e-6) if dt == "bfloat16" else (1e-5, 1e-5)
         limit = atol + rtol * want.float().abs()
         ok = bool((err <= limit).all())
-        max_err = max(max_err, float(err.max()))
+        max_err[dt] = max(max_err[dt], float(err.max()))
         ms = cuda_ms(lambda: correlation(f1, f2, md, s2))
         plain = cuda_ms(lambda: correlation_reference(f1, f2, md, s2), iters=20)
         bound, by = correlation_bound_ms(shape, md, s2, dt)
@@ -268,7 +291,9 @@ def phase_kernels_correlation():
             per_frame["ms"] += ms
             per_frame["plain_ms"] += plain
             per_frame["bound_ms"] += bound
-            bounds.append((bound, by))
+            bounds["frame"].append((bound, by))
+        if name.startswith("train-"):
+            bounds["step"].append((bound, by))
         for total, take in ((per_step, name.startswith("train-")),
                             (per_exact, dt == "float32" and name in
                              ("liteflow", "exact-flownetc"))):
@@ -280,11 +305,14 @@ def phase_kernels_correlation():
               f"ms={total['ms']:.4f} bound_ms={total['bound_ms']:.4f} ratio "
               f"{total['ms'] / total['bound_ms']:.1f}x "
               f"plain_ms={total['plain_ms']:.4f}")
-    return dict(name="correlation", route="cuda",
-                source="vps_torch/csrc/correlation.cu",
-                replaces="vps_tpu/ops/correlation.py:32",
-                max_abs_err=max_err, bound_by=max(bounds)[1],
-                library_ms=None, **per_frame)
+    # two entries: the bf16 route per half-flow frame (its 2 call sites),
+    # the f32 route per train step (its 2 call sites at the train crop)
+    return [dict(name=name, route="cuda", source="vps_torch/csrc/correlation.cu",
+                 replaces="vps_tpu/ops/correlation.py:32", max_abs_err=max_err[dt],
+                 bound_by=max(bounds[unit])[1], library_ms=None, **total)
+            for name, dt, unit, total in (
+                ("corr_bf16_tc", "bfloat16", "frame", per_frame),
+                ("corr_f32", "float32", "step", per_step))]
 
 
 def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
@@ -370,7 +398,7 @@ def phase_kernels_windowed():
     print(f"kernel deform_conv_windowed per frame (12 launches, bf16, R={WINDOW}): "
           f"ms={frame['ms']:.4f} bound_ms={frame['bound_ms']:.4f} ratio "
           f"{frame['ms'] / frame['bound_ms']:.1f}x plain_ms={frame['plain_ms']:.4f}")
-    return dict(name="deform_conv_windowed", route="cuda",
+    return dict(name="dcw_fused", route="cuda",
                 source="vps_torch/csrc/deform_conv_windowed.cu",
                 replaces="vps_tpu/ops/deform_conv.py:447",
                 max_abs_err=max_err, bound_by=max(bound_by)[1],
@@ -437,7 +465,7 @@ def phase_kernels_correlation_backward():
     print(f"kernel correlation_backward per train step (f32, 1 launch): "
           f"ms={entry['ms']:.4f} bound_ms={entry['bound_ms']:.4f} ratio "
           f"{entry['ms'] / entry['bound_ms']:.1f}x plain_ms={entry['plain_ms']:.4f}")
-    return dict(name="correlation_backward", route="cuda",
+    return dict(name="corr_backward", route="cuda",
                 source="vps_torch/csrc/correlation.cu",
                 replaces="vps_tpu/ops/correlation.py:213",
                 max_abs_err=max_err, library_ms=None, **entry)
@@ -540,57 +568,105 @@ def _sync(device):
         torch.cuda.synchronize()
 
 
-def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
-    """The R-50 half-flow path (with ``dcn_window`` set: the windowed
-    semantic head). Returns the launch counts of the run."""
-    import torch
-    from vps_torch import zoo
-    from vps_torch.models.detectors import (
-        PanopticFuseTrack, empty_track_state, predict_video, random_init_)
-    from vps_torch.models.panoptic_fpn import DeformConvWithOffset
-    from vps_torch.ops import correlation, deform_conv2d_windowed
+KERNELS = ("corr_bf16_tc", "corr_f32", "corr_backward", "dcw_fused")
 
-    cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), "half-flow")
-    cfg.pop("type")
-    cfg["panoptic"]["dcn_window"] = dcn_window
-    tcfg = zoo.fusetrack_test_cfg()
+
+def _reset_counts():
+    """Every kernel wrapper's launch count to 0."""
+    from vps_torch.ops import (correlation, correlation_backward,
+                               deform_conv2d_windowed)
+
+    for route in correlation.route_launches:
+        correlation.route_launches[route] = 0
+    correlation.launches = 0
+    correlation_backward.launches = 0
+    deform_conv2d_windowed.launches = 0
+
+
+def _counts():
+    """The launch counts since _reset_counts, by kernel."""
+    from vps_torch.ops import (correlation, correlation_backward,
+                               deform_conv2d_windowed)
+
+    return dict(correlation.route_launches,
+                corr_backward=correlation_backward.launches,
+                dcw_fused=deform_conv2d_windowed.launches)
+
+
+def _want(**counts):
+    """Expected launch counts: the ones given, 0 for every other kernel."""
+    return {k: counts.get(k, 0) for k in KERNELS}
+
+
+def _half_flow(kind, device, dcn_window=None):
+    """The R-50 detector ``kind`` at the half-flow preset (``dcn_window``:
+    the windowed semantic head), seeded random weights; returns it and the
+    seconds it took."""
+    from vps_torch import zoo
+    from vps_torch.models.detectors import build_detector, random_init_
+
     t0 = time.perf_counter()
-    det = random_init_(PanopticFuseTrack(test_cfg=tcfg, device=device, **cfg),
-                       seed=SEED)
+    cfg = _towers(zoo.preset_overrides(zoo.fusetrack_model_cfg(), "half-flow"),
+                  kind)
+    cfg["panoptic"]["dcn_window"] = dcn_window
+    det = random_init_(build_detector(cfg, test_cfg=zoo.fusetrack_test_cfg(),
+                                      device=device), seed=SEED)
     _sync(device)
-    init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(SEED)
-    frames = torch.from_numpy(
-        rng.randn(FRAMES, 1, h, w, 3).astype(np.float32)).to(device)
-    state = empty_track_state(256, device=device)
-    cap_det = tcfg["panoptic"]["max_det"]
+    return det, time.perf_counter() - t0
+
+
+def _drive(det, frames, device, after_first=None):
+    """predict_video over ``frames``: the first a reset, then the rest with
+    its carry, every launch count set to 0 just before. Returns (the
+    outputs on the host, the carry, the first frame's seconds, steady
+    frames/s, the launch counts, peak device bytes)."""
+    import torch
+    from vps_torch.models.detectors import empty_track_state, predict_video
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    correlation.launches = 0
-    deform_conv2d_windowed.launches = 0
+    _reset_counts()
     t0 = time.perf_counter()
-    first, carry = predict_video(det, frames[:1], [True], state, frames[0])
+    first, carry = predict_video(det, frames[:1], [True],
+                                 empty_track_state(256, device=device), frames[0])
     _sync(device)
     t1 = time.perf_counter()
-    # the windowed kernel's weight layouts, made in the first frame
-    dcns = [m for m in det.modules() if isinstance(m, DeformConvWithOffset)]
-    layouts = [getattr(m._cast, "_vps_fused_weight", None) for m in dcns]
-    rest, carry = predict_video(det, frames[1:], [False] * (FRAMES - 1),
+    if after_first is not None:
+        after_first()
+    rest, carry = predict_video(det, frames[1:], [False] * (len(frames) - 1),
                                 carry[0], carry[2], prev_feats=carry[1])
     _sync(device)
     t2 = time.perf_counter()
-    launches = dict(correlation=correlation.launches,
-                    deform_conv_windowed=deform_conv2d_windowed.launches)
+    launches = _counts()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
+    out = {k: torch.cat([first[k], rest[k]]).cpu() for k in first}
+    return out, carry, t1 - t0, (len(frames) - 1) / (t2 - t1), launches, peak
 
-    out = {k: torch.cat([first[k], rest[k]]) for k in first}
+
+def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
+    """The R-50 half-flow path (with ``dcn_window`` set: the windowed
+    semantic head). Returns the launch counts of the run."""
+    import torch
+    from vps_torch.models.panoptic_fpn import DeformConvWithOffset
+
+    det, init_s = _half_flow("PanopticFuseTrack", device, dcn_window)
+    rng = np.random.RandomState(SEED)
+    frames = torch.from_numpy(
+        rng.randn(FRAMES, 1, h, w, 3).astype(np.float32)).to(device)
+    cap_det = det.test_cfg["panoptic"]["max_det"]
+    on_card = torch.device(device).type == "cuda"
+    # the windowed kernel's weight layouts, made in the first frame
+    dcns = [m for m in det.modules() if isinstance(m, DeformConvWithOffset)]
+    layouts = []
+    out, _, first_s, fps, launches, peak = _drive(
+        det, frames, device, after_first=lambda: layouts.extend(
+            getattr(m._cast, "_vps_fused_weight", None) for m in dcns))
     _check_outputs(out, FRAMES, cap_det, h, w)
     # 2 cost volumes a frame; 3 convs x 4 levels a frame when windowed
-    want = dict(correlation=2 * FRAMES,
-                deform_conv_windowed=12 * FRAMES if dcn_window else 0)
-    if launches != want:
+    want = _want(corr_bf16_tc=2 * FRAMES,
+                 dcw_fused=12 * FRAMES if dcn_window else 0)
+    if on_card and launches != want:
         raise AssertionError(f"kernel launches {launches} != {want} over "
                              f"{FRAMES} frames")
     kept = sum(a is not None and getattr(m._cast, "_vps_fused_weight", None) is a
@@ -598,20 +674,161 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
     if on_card and dcn_window and kept != len(dcns):
         raise AssertionError(f"windowed weight layouts rebuilt after frame 0: "
                              f"{len(dcns) - kept} of {len(dcns)}")
-    ndet = out["det_valid"].sum(1).tolist()
-    nkeep = out["num_keep"].tolist()
-    fps = (FRAMES - 1) / (t2 - t1)
     name = "main" if dcn_window is None else "window"
     print(f"{name}: PanopticFuseTrack R-50 half-flow dcn_window={dcn_window} "
           f"{h}x{w} x{FRAMES} frames "
-          f"(frame 0 reset), init {init_s:.1f}s, first frame {t1 - t0:.3f}s, "
+          f"(frame 0 reset), init {init_s:.1f}s, first frame {first_s:.3f}s, "
           f"steady {fps:.3f} frames/s over {FRAMES - 1} frames, "
           f"peak mem {peak / 2**30:.2f} GiB, launches {launches} "
           f"over {FRAMES} frames, "
           + (f"DCN weight layouts kept from frame 0 {kept}/{len(dcns)}, "
              if dcn_window else "")
-          + f"dets/frame {ndet}, kept/frame {nkeep}, "
+          + f"dets/frame {out['det_valid'].sum(1).tolist()}, kept/frame "
+          f"{out['num_keep'].tolist()}, TF32 off; card: {smi}")
+    return launches
+
+
+def _clip(n, h, w, seed):
+    """n seeded random frames (n, 1, h, w, 3) that change slowly, as video
+    does: each is 0.7 of the one before plus 0.3 of fresh noise."""
+    rng = np.random.RandomState(seed)
+    frames = rng.randn(n, 1, h, w, 3).astype(np.float32)
+    for t in range(1, n):
+        frames[t] = 0.7 * frames[t - 1] + 0.3 * frames[t]
+    return frames
+
+
+def phase_detector(smi, kind, device="cuda", h=H, w=W):
+    """PanopticFuse (no track head) or PanopticTrack (no flow, no fuse neck)
+    at the R-50 half-flow preset over a seeded FRAMES-frame clip (the first
+    a reset), as phase_main. Fuse: 2 correlation launches a frame, each
+    frame's object ids the running count of its valid detections, the
+    track state untouched. Track: no correlation launch, and track ids that
+    carry from frame to frame. Returns the launch counts of the run."""
+    import torch
+
+    det, init_s = _half_flow(kind, device)
+    frames = torch.from_numpy(_clip(FRAMES, h, w, SEED + 8)).to(device)
+    cap_det = det.test_cfg["panoptic"]["max_det"]
+    on_card = torch.device(device).type == "cuda"
+    out, carry, first_s, fps, launches, peak = _drive(det, frames, device)
+    _check_outputs(out, FRAMES, cap_det, h, w)
+    ndet = out["det_valid"].sum(1).tolist()
+    ids = [set(out["panoptic_det_obj_ids"][t, :int(out["num_keep"][t])].tolist())
+           for t in range(FRAMES)]
+    if kind == "PanopticFuse":
+        want = _want(corr_bf16_tc=2 * FRAMES)
+        # the running count of valid dets: distinct, in [0, dets)
+        nkeep = out["num_keep"].tolist()
+        ok = all(len(i) == k and all(0 <= x < n for x in i)
+                 for i, k, n in zip(ids, nkeep, ndet))
+        ok &= int(carry[0].count) == 0 and not bool(carry[0].valid.any())
+        check = f"object ids the running count of valid dets: {ok}"
+    else:
+        want = _want()
+        carried = [len(ids[t] & set().union(*ids[:t])) for t in range(1, FRAMES)]
+        ok = any(carried) and all(i <= set(range(int(carry[0].count)))
+                                  for i in ids)
+        check = (f"kept ids seen in an earlier frame, frames 1-{FRAMES - 1}: "
+                 f"{carried}; track memory {int(carry[0].count)}")
+    name = "fuse" if kind == "PanopticFuse" else "track"
+    print(f"{name}: {kind} R-50 half-flow {h}x{w} x{FRAMES} frames (frame 0 "
+          f"reset), init {init_s:.1f}s, first frame {first_s:.3f}s, steady "
+          f"{fps:.3f} frames/s over {FRAMES - 1} frames, peak mem "
+          f"{peak / 2**30:.2f} GiB, launches {launches} over {FRAMES} frames, "
+          f"dets/frame {ndet}, kept/frame {out['num_keep'].tolist()}; {check}; "
           f"TF32 off; card: {smi}")
+    if on_card and launches != want:
+        raise AssertionError(f"{name}: kernel launches {launches} != {want}")
+    if not ok:
+        raise AssertionError(f"{name}: object ids fail their check ({check})")
+    return launches
+
+
+AUG_FRAMES = 3
+
+
+def phase_aug(smi, device="cuda", h=H, w=W):
+    """FuseTrack predict_aug at the R-50 half-flow preset, flip: each frame
+    and its flip on one canvas, over a seeded AUG_FRAMES-frame clip (the
+    first a reset), the track state carried; 2 correlation launches a
+    variant. Before it, the card form of tests/test_aug_test.py:54 on frame
+    0, cuDNN held to deterministic algorithms: predict_aug with the one
+    identity variant gives predict's semantic map exactly, panoptic labels
+    that differ only where an instance is involved (its merge re-runs NMS
+    over the proposals of all levels) and equal where both are stuff, and
+    detection and keep counts within 2. Returns the launch counts of the
+    run."""
+    import torch
+    from vps_torch.models.detectors import empty_track_state
+
+    det, init_s = _half_flow("PanopticFuseTrack", device)
+    clip = torch.from_numpy(_clip(AUG_FRAMES, h, w, SEED + 9)).to(device)
+    cap_det = det.test_cfg["panoptic"]["max_det"]
+    on_card = torch.device(device).type == "cuda"
+    metas = (dict(flip=False, scale_ratio=1.0, img_shape=(h, w)),
+             dict(flip=True, scale_ratio=1.0, img_shape=(h, w)))
+
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
+        plain, _ = det.predict(clip[0], clip[0],
+                               empty_track_state(256, device=device))
+        one, _ = det.predict_aug(clip[:1], clip[:1],
+                                 empty_track_state(256, device=device), metas[:1])
+    pp, pa = plain["panoptic_outputs"], one["panoptic_outputs"]
+    diff = pp != pa
+    num_stuff = det.panopticFPN.num_stuff_classes
+    both_stuff = (pp < num_stuff) & (pa < num_stuff)
+    gate = dict(
+        semantic_equal=bool(torch.equal(plain["fcn_outputs"], one["fcn_outputs"])),
+        differ_only_at_instances=bool(((pp[diff] >= num_stuff)
+                                       | (pa[diff] >= num_stuff)).all()),
+        stuff_equal=bool(torch.equal(pp[both_stuff], pa[both_stuff])),
+        dets_within_2=abs(int(plain["det_valid"].sum())
+                          - int(one["det_valid"].sum())) <= 2,
+        keeps_within_2=abs(int(plain["num_keep"]) - int(one["num_keep"])) <= 2)
+    same_dets = bool(torch.equal(plain["det_valid"], one["det_valid"])
+                     and torch.equal(plain["det_bboxes"], one["det_bboxes"]))
+    print(f"aug: predict_aug with one identity variant vs predict, frame 0, "
+          f"deterministic cuDNN: {gate}; dets {int(one['det_valid'].sum())} vs "
+          f"{int(plain['det_valid'].sum())}, kept {int(one['num_keep'])} vs "
+          f"{int(plain['num_keep'])}, detections identical {same_dets}, "
+          f"panoptic agree {float((~diff).float().mean()):.5f}")
+    if not all(gate.values()):
+        raise AssertionError(f"aug: the identity variant fails {gate}")
+
+    def variants(x):  # (1, h, w, 3) -> (2, 1, h, w, 3): it and its flip
+        return torch.stack([x, x.flip(2)])
+
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    state = empty_track_state(256, device=device)
+    outs, times = [], []
+    for t in range(AUG_FRAMES):
+        t0 = time.perf_counter()
+        ref = clip[max(t - 1, 0)]
+        out, state = det.predict_aug(variants(clip[t]), variants(ref), state,
+                                     metas)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+        outs.append(out)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    out = {k: torch.stack([o[k] for o in outs]).cpu() for k in outs[0]}
+    _check_outputs(out, AUG_FRAMES, cap_det, h, w)
+    want = _want(corr_bf16_tc=2 * len(metas) * AUG_FRAMES)
+    steady = AUG_FRAMES - 1
+    print(f"aug: PanopticFuseTrack R-50 half-flow predict_aug flip ({len(metas)} "
+          f"variants on one {h}x{w} canvas) x{AUG_FRAMES} frames (frame 0 "
+          f"reset), init {init_s:.1f}s, first frame {times[0]:.3f}s, steady "
+          f"{steady / sum(times[1:]):.3f} frames/s over {steady} frames, peak "
+          f"mem {peak / 2**30:.2f} GiB, launches {launches} over {AUG_FRAMES} "
+          f"frames, dets/frame {out['det_valid'].sum(1).tolist()}, kept/frame "
+          f"{out['num_keep'].tolist()}, track memory {int(state.count)}; "
+          f"TF32 off; card: {smi}")
+    if on_card and launches != want:
+        raise AssertionError(f"aug: kernel launches {launches} != {want}")
     return launches
 
 
@@ -621,23 +838,28 @@ def _losses_line(losses):
 
 
 def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
-                steps=TRAIN_STEPS):
+                steps=TRAIN_STEPS, sampler=None):
     """FuseTrack training at full width (R-50, f32 compute as the trainer's
     default, fusetrack_train_cfg, batch 1) through the port's Runner over a
     synthetic sample: 1 warm-up step, then ``steps - 1`` timed ones (host
-    clock around each step, ending in a synchronize). Returns the launch
-    counts of the run."""
+    clock around each step, ending in a synchronize). ``sampler``: the RCNN
+    sampler's config in place of fusetrack_train_cfg's RandomSampler (the
+    "ohem train" path); the determinism probe and the profiled step run only
+    without it. Returns the launch counts of the run."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import PanopticFuseTrack, random_init_
-    from vps_torch.ops import correlation, correlation_backward
     from vps_torch.train.runner import Runner
 
     cfg = zoo.f32_compute_overrides(zoo.fusetrack_model_cfg(depth))
     cfg.pop("type")
+    train_cfg = zoo.fusetrack_train_cfg()
+    if sampler is not None:
+        train_cfg["rcnn"]["sampler"] = dict(sampler)
+    name = "train" if sampler is None else "ohem train"
     t0 = time.perf_counter()
     det = random_init_(PanopticFuseTrack(
-        train_cfg=zoo.fusetrack_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(),
+        train_cfg=train_cfg, test_cfg=zoo.fusetrack_test_cfg(),
         device=device, **cfg), seed=SEED)
     sample = synth_sample(np.random.RandomState(SEED + 4), h, w, MAX_GT)
     loader = SampleLoader(sample, device, steps)
@@ -645,19 +867,17 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
     _sync(device)
     init_s = time.perf_counter() - t0
     on_card = torch.device(device).type == "cuda"
-    probe = _determinism_probe(det, loader.batch)
+    probe = _determinism_probe(det, loader.batch) if sampler is None else {}
     os.makedirs(WORK_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=WORK_DIR) as work:
         runner = Runner(det, loader, {}, work, total_epochs=1, log_interval=1,
                         ckpt_interval=1, seed=SEED)
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        correlation.launches = 0
-        correlation_backward.launches = 0
+        _reset_counts()
         state = runner.run()
         _sync(device)
-        launches = dict(correlation=correlation.launches,
-                        correlation_backward=correlation_backward.launches)
+        launches = _counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         ckpt_mb = sum(os.path.getsize(os.path.join(work, f))
                       for f in os.listdir(work)) / 2**20
@@ -667,8 +887,9 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
     moved = {n for n, p in det.named_parameters()
              if not torch.equal(p.detach(), before[n])}
     bad = [k for r in hist for k, v in r.items() if not np.isfinite(v)]
-    print(f"train: PanopticFuseTrack R-{depth} f32 {h}x{w} batch 1 "
-          f"fusetrack_train_cfg, gt {int(sample['gt_valid'].sum())} of {MAX_GT}, "
+    print(f"{name}: PanopticFuseTrack R-{depth} f32 {h}x{w} batch 1 "
+          f"fusetrack_train_cfg, rcnn sampler {train_cfg['rcnn']['sampler']}, "
+          f"gt {int(sample['gt_valid'].sum())} of {MAX_GT}, "
           f"init {init_s:.1f}s, first step {hist[0]['time']:.3f}s, "
           f"{statistics.mean(timed):.4f} s/step over {len(timed)} steps "
           f"(min {min(timed):.4f}, max {max(timed):.4f}), peak mem "
@@ -678,20 +899,22 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
           f"{len(trainable)}, frozen changed {len(moved - trainable)}/"
           f"{len(before) - len(trainable)}, checkpoint {ckpt_mb:.0f} MiB; "
           f"card: {smi}")
-    print(f"train: step 1 {_losses_line(hist[0])}")
-    print(f"train: step {len(hist)} {_losses_line(hist[-1])}")
+    print(f"{name}: step 1 {_losses_line(hist[0])}")
+    print(f"{name}: step {len(hist)} {_losses_line(hist[-1])}")
     if bad:
-        raise AssertionError(f"train: non-finite {sorted(set(bad))}")
+        raise AssertionError(f"{name}: non-finite {sorted(set(bad))}")
     if state.optimizer.total_notfinite or state.optimizer.count != steps:
-        raise AssertionError(f"train: {state.optimizer.total_notfinite} steps "
+        raise AssertionError(f"{name}: {state.optimizer.total_notfinite} steps "
                              f"skipped, {state.optimizer.count} applied")
     if moved != trainable:
-        raise AssertionError(f"train: unchanged trainable "
+        raise AssertionError(f"{name}: unchanged trainable "
                              f"{sorted(trainable - moved)[:5]}, changed frozen "
                              f"{sorted(moved - trainable)[:5]}")
-    want = dict(correlation=2 * steps, correlation_backward=steps)
+    want = _want(corr_f32=2 * steps, corr_backward=steps)
     if on_card and launches != want:
-        raise AssertionError(f"train: kernel launches {launches} != {want}")
+        raise AssertionError(f"{name}: kernel launches {launches} != {want}")
+    if sampler is not None:
+        return launches
     same = [k for k in probe if k in hist[0] and hist[0][k] == probe[k]]
     print(f"train determinism: the Runner's step 1 equals the probe's forward "
           f"in {len(same)} of {len(probe)} terms")
@@ -768,12 +991,13 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
     (R-50, f32, the config's own pipelines; data paths, 1 epoch of 4 steps
     and a log line a step overridden), ``vps_torch.tools.test_vpq`` on its
     checkpoint at ``half-flow`` and ``vps_torch.tools.eval_vpq``; and
-    eval_vpq with the GT itself as the submission, which must read 100.
-    ``tiny``: the tiny model and pipelines at h x w, for a CPU rehearsal.
-    Returns the launch counts of the train and test runs."""
+    eval_vpq with the GT itself as the submission, which must read 100;
+    then ``test_vpq --aug`` (each frame and its flip) on the same checkpoint,
+    scored by eval_vpq. ``tiny``: the tiny model and pipelines at h x w, for
+    a CPU rehearsal. Returns the launch counts of the train, test and aug
+    runs by path."""
     import torch
     from vps_torch.data.synth import make_synth_vps
-    from vps_torch.ops import correlation, correlation_backward
     from vps_torch.tools import eval_vpq, test_vpq, train
     from vps_torch.utils.checkpoint import latest_checkpoint
     from vps_torch.utils.numerics import describe
@@ -812,15 +1036,13 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
 
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        correlation.launches = 0
-        correlation_backward.launches = 0
+        _reset_counts()
         t0 = time.perf_counter()
         runner = train.main([cfg_path, "--work_dir", os.path.join(tmp, "work"),
                              "--device", device])
         _sync(device)
         train_s = time.perf_counter() - t0
-        train_launches = dict(correlation=correlation.launches,
-                              correlation_backward=correlation_backward.launches)
+        train_launches = _counts()
         train_peak = torch.cuda.max_memory_allocated() if on_card else 0
         hist = runner.log_history
         del runner
@@ -832,28 +1054,38 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
 
-        correlation.launches = 0
-        out = os.path.join(tmp, "out", "val.pkl")
-        summary = test_vpq.main([
-            cfg_path, "--checkpoint", latest_checkpoint(os.path.join(tmp, "work")),
-            "--out", out, "--preset",
-            "half-flow", "--lambda", "1", "--labeled_fid", "0",
-            "--nframes_per_video", str(val_frames), "--pan_im_json_file",
-            gt_json, "--device", device])
+        ckpt = latest_checkpoint(os.path.join(tmp, "work"))
+        test_args = [cfg_path, "--checkpoint", ckpt, "--preset", "half-flow",
+                     "--lambda", "1", "--labeled_fid", "0",
+                     "--nframes_per_video", str(val_frames),
+                     "--pan_im_json_file", gt_json, "--device", device]
+        _reset_counts()
+        summary = test_vpq.main(test_args + [
+            "--out", os.path.join(tmp, "out", "val.pkl")])
         _sync(device)
-        test_launches = dict(correlation=correlation.launches)
+        test_launches = _counts()
         test_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        aug = test_vpq.main(test_args + [
+            "--out", os.path.join(tmp, "aug", "val.pkl"), "--aug"])
+        _sync(device)
+        aug_launches = _counts()
+        aug_peak = torch.cuda.max_memory_allocated() if on_card else 0
 
         with open(val_ann) as f:
             want_arts = sorted(im["file_name"].replace("_newImg8bit", "")
                                for im in json.load(f)["images"])
-        pan_dir = os.path.join(summary["output_dir"], "pan_pred")
-        written = sorted(n for n in os.listdir(pan_dir)
-                         if os.path.getsize(os.path.join(pan_dir, n)))
-        vpq = eval_vpq.main([
-            "--submit_dir", summary["output_dir"], "--truth_dir", truth_dir,
-            "--pan_gt_json_file", gt_json, "--nframes_per_video",
-            str(val_frames)])
+        written, vpq = {}, {}
+        for key, run in (("test", summary), ("aug", aug)):
+            pan_dir = os.path.join(run["output_dir"], "pan_pred")
+            written[key] = sorted(n for n in os.listdir(pan_dir)
+                                  if os.path.getsize(os.path.join(pan_dir, n)))
+            vpq[key] = eval_vpq.main([
+                "--submit_dir", run["output_dir"], "--truth_dir", truth_dir,
+                "--pan_gt_json_file", gt_json, "--nframes_per_video",
+                str(val_frames)])
         # the GT itself as the submission: its pngs and its json, each png
         # under the name of the image eval_vpq pairs it with (the images in
         # the json's order, the GT files sorted)
@@ -873,10 +1105,8 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
 
     n_val = val_videos * val_frames
     steps = [r["time"] for r in hist[1:]]
-    steady = summary["steady_s"]
     bad = [k for r in hist for k, v in r.items() if not np.isfinite(v)]
     skips = int(hist[-1]["nonfinite_skips"])
-    arts = summary["artifacts"]
     print(f"dataset: {describe(numerics)}")
     print(f"dataset: fixture {h}x{w} (1 train video x {train_frames} frames, "
           f"{val_videos} val videos x {val_frames}) and GT in {fixture_s:.1f}s; "
@@ -891,35 +1121,46 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
     print("dataset: the train loader alone, s a batch of 1: " + "; ".join(
         f"{w} workers " + ", ".join(f"{t:.3f}" for t in ts)
         for w, ts in loader_s.items()))
-    print(f"dataset: test_vpq half-flow {summary['frames']} frames, "
-          f"{len(steady) / sum(steady):.3f} frames/s over the {len(steady)} "
-          f"after each video's first (predict + outputs to the host), peak "
-          f"mem {test_peak / 2**30:.2f} GiB, launches {test_launches}, "
-          f"{len(arts)} artifacts of {n_val} frames; card: {smi}")
-    print(f"dataset: eval_vpq vpq_all {vpq[0]:.4f} vpq_thing {vpq[1]:.4f} "
-          f"vpq_stuff {vpq[2]:.4f} (after {len(hist)} steps from random "
-          f"weights: a check of the chain, not a quality number); the GT "
-          f"as its own submission: vpq_all {gt_vpq[0]:.4f}")
+    for key, run, launches, peak in (("", summary, test_launches, test_peak),
+                                     (" --aug", aug, aug_launches, aug_peak)):
+        steady = run["steady_s"]
+        v = vpq["aug" if key else "test"]
+        print(f"dataset: test_vpq{key} half-flow {run['frames']} frames, "
+              f"{len(steady) / sum(steady):.3f} frames/s over the {len(steady)} "
+              f"after each video's first (predict + outputs to the host), peak "
+              f"mem {peak / 2**30:.2f} GiB, launches {launches}, "
+              f"{len(run['artifacts'])} artifacts of {n_val} frames; eval_vpq "
+              f"vpq_all {v[0]:.4f} vpq_thing {v[1]:.4f} vpq_stuff {v[2]:.4f}; "
+              f"card: {smi}")
+    print(f"dataset: VPQ after {len(hist)} steps from random weights is a "
+          f"check of the chain, not a quality number; the GT as its own "
+          f"submission: vpq_all {gt_vpq[0]:.4f}")
     if bad:
         raise AssertionError(f"dataset: non-finite {sorted(set(bad))}")
     if skips != 0:
         raise AssertionError(f"dataset: {skips} steps skipped")
-    if sorted(arts) != want_arts or written != want_arts:
-        raise AssertionError(f"dataset: artifacts {sorted(arts)}, written "
-                             f"{written}, want one for each of {want_arts}")
-    if not all(0.0 <= v <= 100.0 for v in vpq):
-        raise AssertionError(f"dataset: VPQ {vpq} outside [0, 100]")
+    for key, run in (("test", summary), ("aug", aug)):
+        if sorted(run["artifacts"]) != want_arts or written[key] != want_arts:
+            raise AssertionError(f"dataset {key}: artifacts "
+                                 f"{sorted(run['artifacts'])}, written "
+                                 f"{written[key]}, want one for each of "
+                                 f"{want_arts}")
+        if not all(0.0 <= v <= 100.0 for v in vpq[key]):
+            raise AssertionError(f"dataset {key}: VPQ {vpq[key]} outside "
+                                 f"[0, 100]")
     if abs(gt_vpq[0] - 100.0) > 1e-6:
         raise AssertionError(f"dataset: the GT scores {gt_vpq} against "
                              f"itself, not 100")
-    want_train = dict(correlation=2 * train_frames,
-                      correlation_backward=train_frames)
-    want_test = dict(correlation=2 * n_val)
-    if on_card and (train_launches != want_train or test_launches != want_test):
-        raise AssertionError(f"dataset: kernel launches train "
-                             f"{train_launches} (want {want_train}), test "
-                             f"{test_launches} (want {want_test})")
-    return train_launches, test_launches
+    got = {"dataset train": train_launches, "dataset test_vpq": test_launches,
+           "dataset test_vpq --aug": aug_launches}
+    want = {"dataset train": _want(corr_f32=2 * train_frames,
+                                   corr_backward=train_frames),
+            "dataset test_vpq": _want(corr_bf16_tc=2 * n_val),
+            # 2 variants a frame (it and its flip), 2 cost volumes each
+            "dataset test_vpq --aug": _want(corr_bf16_tc=4 * n_val)}
+    if on_card and got != want:
+        raise AssertionError(f"dataset: kernel launches {got}, want {want}")
+    return got
 
 
 def _fingerprints(det, batch, seed, modules=None):
@@ -1109,7 +1350,32 @@ def _choice_divergence(own, ref):
                      for kind, (calls, n, flips, gap, noise) in stats.items())
 
 
-def phase_small_train(device="cuda"):
+def _ohem_divergence(own, ref, sampler):
+    """The card's own hard-mining losses against the CPU's (both over the
+    same candidates): their largest difference, the CPU selection's edge
+    (the gap between the last candidate kept and the first left out, of
+    the positives and of the negatives) and the slots the card's own
+    losses would pick differently."""
+    from vps_torch.core.sampler import ohem_sample
+
+    gi, losses = ref
+    noise = float((own[1] - losses)[gi >= 0].abs().max())
+    num, pf = sampler["num"], sampler["pos_fraction"]
+    n_pos = int((gi > 0).sum())
+    gaps = []
+    for kind, keep in ((gi > 0, int(num * pf)),
+                       (gi == 0, num - min(n_pos, int(num * pf)))):
+        vals = losses[kind].sort(descending=True).values
+        if len(vals) > keep:
+            gaps.append(float(vals[keep - 1] - vals[keep]))
+    mine = set(ohem_sample(gi, own[1], num, pf).inds.tolist())
+    theirs = set(ohem_sample(gi, losses, num, pf).inds.tolist())
+    return (f"{int((gi >= 0).sum())} candidates, max |card - cpu| {noise:.2e}, "
+            f"edge gaps {', '.join(f'{g:.2e}' for g in gaps) or 'none'}; "
+            f"{len(mine - theirs)} slots the card's own losses would change")
+
+
+def phase_small_train(device="cuda", sampler=None):
     """The tiny model's training loss on a 128x256 sample on the card against
     the same model's plain CPU path: same weights, the same sampler draws
     (both from one seeded CPU generator) and the same proposals (the CPU
@@ -1124,10 +1390,14 @@ def phase_small_train(device="cuda"):
     the weights and the loss). The weights are those of
     tests/test_torch_port_train.py: DCN offsets near 0.5 and LiteFlowNet's
     residual flow near 0, so no trained bilinear sample sits within
-    rounding of an integer, where its gradient jumps."""
+    rounding of an integer, where its gradient jumps. ``sampler``: the RCNN
+    sampler's config (OHEM): its ranking is a discrete choice too, the
+    CPU's hard-mining losses ranked on the card, the card's own shown beside
+    them with the selection's edge."""
     import torch
     import torch.nn.functional as F
-    import vps_torch.core.sampler as sampler
+    import vps_torch.core.sampler as samplers
+    import vps_torch.core.targets as targets
     import vps_torch.models.bfp_tcea as bfp_tcea
     import vps_torch.models.detectors.panoptic as panoptic
     import vps_torch.models.flow.liteflow as liteflow
@@ -1138,7 +1408,11 @@ def phase_small_train(device="cuda"):
 
     cfg = zoo.f32_compute_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()))
     cfg.pop("type")
-    kw = dict(train_cfg=zoo.tiny_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(), **cfg)
+    train_cfg = zoo.tiny_train_cfg()
+    if sampler is not None:
+        train_cfg["rcnn"]["sampler"] = dict(sampler)
+    name = "small train" if sampler is None else "small ohem train"
+    kw = dict(train_cfg=train_cfg, test_cfg=zoo.fusetrack_test_cfg(), **cfg)
     cpu = random_init_(PanopticFuseTrack(device="cpu", **kw), 1)
     with torch.no_grad():
         cpu.bbox_head.fc_cls.weight.mul_(0.25)  # the milder classifier of
@@ -1152,7 +1426,7 @@ def phase_small_train(device="cuda"):
     gpu.load_state_dict(cpu.state_dict(), strict=True)
     sample = synth_sample(np.random.RandomState(SEED + 5), 128, 256, 8, n_things=4)
     free = ("loss_segm", "loss_rpn_cls", "loss_rpn_bbox")
-    proposals, scores, picks = {}, {}, {}
+    proposals, scores, picks, hard = {}, {}, {}, {}
 
     def replayed(dev, kind, plain, choose, apply):
         """``plain``, recording each call's input and discrete choice; on
@@ -1204,10 +1478,17 @@ def phase_small_train(device="cuda"):
             scores[dev] = torch.cat([c.reshape(-1) for c in cls_outs]).sigmoid().cpu()
             return tuple(t.to(dev) for t in proposals["cpu"])
 
+        def ohem(gi, losses, num, pos_fraction):
+            hard[dev] = (gi.cpu(), losses.cpu())
+            return ohem_sample(gi, hard["cpu"][1].to(losses.device), num,
+                               pos_fraction)
+
         rpn_proposals = panoptic.rpn_proposals
-        patched = [(sampler, "uniform",
+        ohem_sample = targets.ohem_sample
+        patched = [(samplers, "uniform",
                     lambda g, shape, d: torch.rand(shape, generator=gen).to(d)),
-                   (panoptic, "rpn_proposals", props)] + patches(dev)
+                   (panoptic, "rpn_proposals", props),
+                   (targets, "ohem_sample", ohem)] + patches(dev)
         saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
         for mod, name, fn in patched:
             setattr(mod, name, fn)
@@ -1226,7 +1507,7 @@ def phase_small_train(device="cuda"):
     correlation_backward.launches = 0
     got, got_g = run(gpu, device)
     if torch.device(device).type == "cuda" and correlation_backward.launches != 1:
-        raise AssertionError("small train: the backward kernel did not launch")
+        raise AssertionError(f"{name}: the backward kernel did not launch")
     noise = float((scores[device] - scores["cpu"]).abs().max())
     fails, parts = [], []
     for k in sorted(want):  # relative; the selection-free terms and loss_pano
@@ -1250,78 +1531,143 @@ def phase_small_train(device="cuda"):
     r = ratios(got_g)
     worst = max((v, n) for n, v in r.items())
     fails += [n for n, v in r.items() if not v <= 1.0]
-    print(f"small train: tiny f32 128x256 card vs cpu, same draws, the cpu's "
+    print(f"{name}: tiny f32 128x256 card vs cpu, same draws, the cpu's "
           f"proposals: " + "; ".join(parts))
-    print(f"small train: the card's own proposals vs the cpu's: "
+    print(f"{name}: the card's own proposals vs the cpu's: "
           + _proposal_divergence(proposals[device], proposals["cpu"], noise))
-    print(f"small train: the card's own choices in the fuse neck vs the "
+    print(f"{name}: the card's own choices in the fuse neck vs the "
           f"cpu's: " + _choice_divergence(picks[device], picks["cpu"]))
-    print(f"small train: selection-free gradients of {len(want_g)} tensors, "
+    if sampler is not None:
+        print(f"{name}: the card's own OHEM ranking vs the cpu's: "
+              + _ohem_divergence(hard[device], hard["cpu"], sampler))
+    print(f"{name}: selection-free gradients of {len(want_g)} tensors, "
           f"max |card - cpu| within (5e-3 max|cpu| + 1e-6 max over all), worst "
           f"at {worst[0]:.3f} of its limit ({worst[1]})")
     if fails:
-        raise AssertionError(f"small train: card and cpu disagree at {fails[:5]}")
+        raise AssertionError(f"{name}: card and cpu disagree at {fails[:5]}")
 
 
-def phase_small(device="cuda", dcn_window=None):
-    """Port on the card vs the port's plain CPU path, same weights, tiny
-    exact-preset model (R-18, TinyFlow) on a 3-frame 64x128 clip (with
-    ``dcn_window``: the windowed kernel on the card, its plain version on
-    the CPU)."""
+def _towers(cfg, kind):
+    """A model config for the detector ``kind``: PanopticFuse without the
+    track head, PanopticTrack without the fuse neck."""
+    cfg = dict(cfg, type=kind)
+    if kind == "PanopticFuse":
+        cfg["track_head"] = None
+    elif kind == "PanopticTrack":
+        cfg["extra_neck"] = None
+    return cfg
+
+
+def _small_pair(device, kind="PanopticFuseTrack", dcn_window=None,
+                refine_type="conv"):
+    """The tiny exact-preset model (R-18, TinyFlow) on the CPU, seeded, and
+    a copy of it on ``device``."""
     import torch
     from vps_torch import zoo
-    from vps_torch.models.detectors import (
-        PanopticFuseTrack, empty_track_state, predict_video, random_init_)
-    from vps_torch.ops import deform_conv2d_windowed
+    from vps_torch.models.detectors import build_detector, random_init_
 
-    cfg = zoo.exact_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()))
-    cfg.pop("type")
+    cfg = _towers(zoo.exact_overrides(zoo.tiny_overrides(
+        zoo.fusetrack_model_cfg())), kind)
     cfg["panoptic"]["dcn_window"] = dcn_window
+    if cfg["extra_neck"] is not None:
+        cfg["extra_neck"]["refine_type"] = refine_type
     tcfg = zoo.fusetrack_test_cfg()
     tcfg["rpn"].update(nms_pre=128, max_num=64)
     tcfg["panoptic"].update(score_thresh=0.2, max_det=12)
-    cpu = random_init_(PanopticFuseTrack(test_cfg=tcfg, device="cpu", **cfg), 1)
+    cpu = random_init_(build_detector(cfg, test_cfg=tcfg, device="cpu"), 1)
     # a milder classifier than random_init_'s: probabilities that saturate to
     # 1.0 in f32 tie, and ulp-level differences between the two devices then
     # reorder the detections
     with torch.no_grad():
         cpu.bbox_head.fc_cls.weight.mul_(0.25)
         cpu.bbox_head.fc_cls.bias.mul_(0.25)
-    gpu = PanopticFuseTrack(test_cfg=tcfg, device=device, **cfg)
+    gpu = build_detector(cfg, test_cfg=tcfg, device=device)
     gpu.load_state_dict(cpu.state_dict(), strict=True)
-    rng = np.random.RandomState(SEED + 1)
-    clip = torch.from_numpy(rng.randn(3, 1, 64, 128, 3).astype(np.float32))
-    resets = [True, False, False]
-    want, _ = predict_video(cpu, clip, resets, empty_track_state(64, device="cpu"),
-                            clip[0])
-    deform_conv2d_windowed.launches = 0
-    got, _ = predict_video(gpu, clip.to(device), resets,
-                           empty_track_state(64, device=device),
-                           clip[0].to(device))
+    return cpu, gpu
+
+
+def _small_gates(label, got, want):
+    """Card against CPU: equal detections, keep sets and ids, boxes within
+    2e-2, >= 0.999 semantic and panoptic agreement."""
+    import torch
+
     got = {k: v.cpu() for k, v in got.items()}
-    if dcn_window and torch.device(device).type == "cuda" and \
-            deform_conv2d_windowed.launches != 12 * len(resets):
-        raise AssertionError(f"small clip: {deform_conv2d_windowed.launches} "
-                             f"windowed launches, want 12 a frame")
     for k in ("det_valid", "det_labels", "num_keep", "panoptic_valid",
               "panoptic_cls_inds", "panoptic_det_obj_ids"):
         if not torch.equal(got[k].long(), want[k].long()):
-            raise AssertionError(f"small clip: {k} differs on the card")
+            raise AssertionError(f"small {label}: {k} differs on the card")
     box_diff = (got["det_bboxes"] - want["det_bboxes"]).abs()
     box_err = float(box_diff.max())
     sseg = float((got["fcn_outputs"] == want["fcn_outputs"]).float().mean())
     pan = float((got["panoptic_outputs"] == want["panoptic_outputs"]).float().mean())
     ndet = int(want["det_valid"].sum())
-    print(f"small: tiny exact dcn_window={dcn_window} 64x128 x3 card vs cpu: "
-          f"dets {ndet} equal, "
+    print(f"small: {label} card vs cpu: dets {ndet} equal, "
           f"box max err {box_err:.2e} (tol 2e-2), semantic agree {sseg:.5f}, "
           f"panoptic agree {pan:.5f} (tol 0.999)")
     if ndet == 0 or box_err > 2e-2 or sseg < 0.999 or pan < 0.999:
         worst = np.unravel_index(int(box_diff.argmax()), tuple(box_diff.shape))
-        print(f"small: worst box {worst}: card {got['det_bboxes'][worst[:2]]} "
-              f"cpu {want['det_bboxes'][worst[:2]]} probs card "
-              f"{got['det_probs'][worst[:2]]} cpu {want['det_probs'][worst[:2]]}")
-        raise AssertionError("small clip disagrees between card and cpu")
+        print(f"small: worst box {worst}: card {got['det_bboxes'][worst[:-1]]} "
+              f"cpu {want['det_bboxes'][worst[:-1]]} probs card "
+              f"{got['det_probs'][worst[:-1]]} cpu {want['det_probs'][worst[:-1]]}")
+        raise AssertionError(f"small {label} disagrees between card and cpu")
+
+
+def phase_small(device="cuda", dcn_window=None, kind="PanopticFuseTrack",
+                refine_type="conv"):
+    """Port on the card vs the port's plain CPU path, same weights, tiny
+    exact-preset model (R-18, TinyFlow) of the detector ``kind`` on a
+    3-frame 64x128 clip (with ``dcn_window``: the windowed kernel on the
+    card, its plain version on the CPU; ``refine_type``: the fuse neck's)."""
+    import torch
+    from vps_torch.models.detectors import empty_track_state, predict_video
+
+    cpu, gpu = _small_pair(device, kind, dcn_window, refine_type)
+    rng = np.random.RandomState(SEED + 1)
+    clip = torch.from_numpy(rng.randn(3, 1, 64, 128, 3).astype(np.float32))
+    resets = [True, False, False]
+    want, _ = predict_video(cpu, clip, resets, empty_track_state(64, device="cpu"),
+                            clip[0])
+    _reset_counts()
+    got, _ = predict_video(gpu, clip.to(device), resets,
+                           empty_track_state(64, device=device),
+                           clip[0].to(device))
+    if dcn_window and torch.device(device).type == "cuda" and \
+            _counts()["dcw_fused"] != 12 * len(resets):
+        raise AssertionError(f"small clip: {_counts()['dcw_fused']} "
+                             f"windowed launches, want 12 a frame")
+    _small_gates(f"{kind} exact dcn_window={dcn_window} refine_type="
+                 f"{refine_type} 64x128 x3", got, want)
+
+
+def phase_small_aug(device="cuda"):
+    """predict_aug of the tiny exact FuseTrack on the card vs its plain CPU
+    path: one 64x128 frame as 3 variants on one canvas (the frame, its flip,
+    the frame at half scale in the top-left corner), under phase_small's
+    gates."""
+    import torch
+    import torch.nn.functional as F
+    from vps_torch.models.detectors import empty_track_state
+
+    cpu, gpu = _small_pair(device)
+    rng = np.random.RandomState(SEED + 7)
+    img, ref = (torch.from_numpy(rng.randn(1, 64, 128, 3).astype(np.float32))
+                for _ in range(2))
+
+    def variants(x):
+        half = F.interpolate(x.permute(0, 3, 1, 2), size=(32, 64),
+                             mode="bilinear", align_corners=False)
+        half = F.pad(half, (0, 64, 0, 32)).permute(0, 2, 3, 1)
+        return torch.stack([x, x.flip(2), half])
+
+    metas = (dict(flip=False, scale_ratio=1.0, img_shape=(64, 128)),
+             dict(flip=True, scale_ratio=1.0, img_shape=(64, 128)),
+             dict(flip=False, scale_ratio=0.5, img_shape=(32, 64)))
+    want, _ = cpu.predict_aug(variants(img), variants(ref),
+                              empty_track_state(64, device="cpu"), metas)
+    got, _ = gpu.predict_aug(variants(img).to(device), variants(ref).to(device),
+                             empty_track_state(64, device=device), metas)
+    _small_gates("FuseTrack predict_aug x3 variants (identity, flip, scale "
+                 "0.5) 64x128", got, want)
 
 
 def main() -> int:
@@ -1338,18 +1684,30 @@ def main() -> int:
     print(describe(numerics))
     t0 = time.perf_counter()
     smi = phase_build()
-    kernels = [phase_kernels_correlation(), phase_kernels_windowed(),
-               phase_kernels_correlation_backward()]
-    main_launches = phase_main(smi)
-    window_launches = phase_main(smi, dcn_window=WINDOW)
-    train_launches = phase_train(smi)
-    kernels[0]["launches"] = main_launches["correlation"]
-    kernels[1]["launches"] = window_launches["deform_conv_windowed"]
-    kernels[2]["launches"] = train_launches["correlation_backward"]
+    kernels = phase_kernels_correlation() + [
+        phase_kernels_correlation_backward(), phase_kernels_windowed()]
+    paths = {"main": phase_main(smi),
+             "window": phase_main(smi, dcn_window=WINDOW),
+             "train": phase_train(smi),
+             "fuse": phase_detector(smi, "PanopticFuse"),
+             "track": phase_detector(smi, "PanopticTrack"),
+             "aug": phase_aug(smi),
+             "ohem train": phase_train(smi, steps=OHEM_STEPS, sampler=OHEM)}
     phase_small()
     phase_small(dcn_window=WINDOW)
+    phase_small(kind="PanopticFuse")
+    phase_small(kind="PanopticTrack")
+    phase_small(refine_type="att")
+    phase_small_aug()
     phase_small_train()
-    phase_dataset(smi, numerics)
+    phase_small_train(sampler=dict(OHEM, num=32))
+    paths.update(phase_dataset(smi, numerics))
+    # launches: the run of the kernel's own path; by path: every path's run
+    own = {"corr_bf16_tc": "main", "corr_f32": "train",
+           "corr_backward": "train", "dcw_fused": "window"}
+    for k in kernels:
+        k["launches"] = paths[own[k["name"]]][k["name"]]
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

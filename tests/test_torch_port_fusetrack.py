@@ -207,7 +207,8 @@ def test_port_imports_no_jax():
         "data/transforms", "data/dataset", "data/loader", "data/synth",
         "eval/pq", "eval/vpq", "eval/unified", "train/eval_hook",
         "tools/train", "tools/test_vpq", "tools/eval_vpq",
-        "configs/cityscapes/fusetrack", "configs/cityscapes/fusetrack_fast")}
+        "configs/cityscapes/fusetrack", "configs/cityscapes/fusetrack_fast",
+        "configs/cityscapes/fuse", "configs/cityscapes/track")}
     assert required <= names, required - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

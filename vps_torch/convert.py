@@ -92,6 +92,14 @@ RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
     (r"extra_neck/tcea_fusion/(\w+)/Conv_0", "extra_neck.tcea_fusion.{0}",
      _WB, conv_w),
     (r"extra_neck/refine/Conv_0/Conv_0", "extra_neck.refine.conv", _WB, conv_w),
+    # refine_type='att': the conv, then CBAM (the JAX converter has no
+    # names for these; the port's are its own)
+    (r"extra_neck/refine_conv/Conv_0/Conv_0", "extra_neck.refine_conv.conv",
+     _WB, conv_w),
+    (r"extra_neck/refine_att/(mlp[01])", "extra_neck.refine_att.{0}", _WB,
+     linear_w),
+    (r"extra_neck/refine_att/spatial/Conv_0", "extra_neck.refine_att.spatial",
+     _WB, conv_w),
     (rf"flownet2/({_FLOW_NETS})/(predict_flow\d)/Conv_0", "flownet2.{0}.{1}",
      _WB, conv_w),
     (rf"flownet2/({_FLOW_NETS})/(\w+)/Conv_0", "flownet2.{0}.{1}.0", _WB, conv_w),
@@ -121,9 +129,11 @@ def _torch_key(path: Tuple[str, ...]):
 
 
 def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
-    """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack, as
+    """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack,
+    PanopticFuse or PanopticTrack (either fuse neck, either refine type), as
     numpy arrays -> the port's mmdet-named state_dict (float32 tensors),
-    accepted by ``load_state_dict(strict=True)``."""
+    accepted by the same detector's ``load_state_dict(strict=True)``: a
+    tower the tree lacks has no keys."""
     sd: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats or {}):
         for path, value in _flatten(tree):

@@ -1,5 +1,6 @@
-"""Random pos/neg sampler (port of vps_tpu/core/sampler.py: ``SampleResult``,
-``_sample_by_priority`` and ``random_sample``), static shape: up to
+"""Pos/neg samplers (port of vps_tpu/core/sampler.py: ``SampleResult``,
+``_sample_by_priority``, ``random_sample`` and ``ohem_sample``), static
+shape: up to
 num * pos_fraction positives, negatives fill the rest, positives first so
 the heads can slice the positive prefix.
 
@@ -66,5 +67,16 @@ def random_sample(generator, assigned_gt_inds, num: int,
     n = assigned_gt_inds.shape[0]
     r = uniform(generator, (2, n), assigned_gt_inds.device)
     return _sample_by_priority(r[0], r[1], assigned_gt_inds > 0,
+                               assigned_gt_inds == 0, num,
+                               int(num * pos_fraction))
+
+
+def ohem_sample(assigned_gt_inds, losses, num: int,
+                pos_fraction: float) -> SampleResult:
+    """OHEM (mmdet's OHEMSampler): the hardest candidates, those of the
+    highest current loss, instead of random ones; ``losses`` (N,) from the
+    hard-mining forward. The negated loss is the priority (lower first)."""
+    hard = -losses
+    return _sample_by_priority(hard, hard, assigned_gt_inds > 0,
                                assigned_gt_inds == 0, num,
                                int(num * pos_fraction))

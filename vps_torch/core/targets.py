@@ -10,7 +10,7 @@ from typing import NamedTuple
 import torch
 
 from vps_torch.core.assigner import AssignResult, max_iou_assign
-from vps_torch.core.sampler import SampleResult, random_sample
+from vps_torch.core.sampler import SampleResult, ohem_sample, random_sample
 from vps_torch.ops.box import bbox2delta
 from vps_torch.ops.mask import crop_and_resize_indexed
 
@@ -22,7 +22,7 @@ def assign_from_cfg(cfg, bboxes, gt_bboxes, gt_labels=None, gt_pids=None,
     typ = cfg.get("type", "MaxIoUAssigner")
     if typ != "MaxIoUAssigner":
         raise KeyError(f"assigner type {typ!r} is not ported (ROADMAP.md "
-                       "queue 1 item 13: the rest of the zoo)")
+                       "queue 1 item 9: the rest of the zoo)")
     return max_iou_assign(
         bboxes, gt_bboxes, pos_iou_thr=cfg["pos_iou_thr"],
         neg_iou_thr=cfg["neg_iou_thr"], min_pos_iou=cfg.get("min_pos_iou", 0.0),
@@ -30,15 +30,23 @@ def assign_from_cfg(cfg, bboxes, gt_bboxes, gt_labels=None, gt_pids=None,
         gt_valid=gt_valid, gt_max_assign_all=cfg.get("gt_max_assign_all", True))
 
 
-def sample_from_cfg(generator, cfg, assign: AssignResult) -> SampleResult:
-    """``type=`` dispatch over samplers; RandomSampler, the only one
-    FuseTrack uses, is the only one ported."""
+def sample_from_cfg(generator, cfg, assign: AssignResult,
+                    loss_fn=None) -> SampleResult:
+    """``type=`` dispatch over samplers: RandomSampler and OHEMSampler (the
+    VPSNet configs' two; the rest of the zoo's are not ported). ``loss_fn``:
+    OHEM's per-candidate loss, called as loss_fn(assign) -> (N,)."""
     typ = cfg.get("type", "RandomSampler")
-    if typ != "RandomSampler":
-        raise KeyError(f"sampler type {typ!r} is not ported (ROADMAP.md "
-                       "queue 1 item 13: the rest of the zoo)")
-    return random_sample(generator, assign.assigned_gt_inds, cfg["num"],
-                         cfg["pos_fraction"])
+    if typ == "RandomSampler":
+        return random_sample(generator, assign.assigned_gt_inds, cfg["num"],
+                             cfg["pos_fraction"])
+    if typ == "OHEMSampler":
+        if loss_fn is None:
+            raise ValueError("OHEMSampler needs a hard-mining loss_fn (the "
+                             "detector passes its bbox head's forward)")
+        return ohem_sample(assign.assigned_gt_inds, loss_fn(assign),
+                           cfg["num"], cfg["pos_fraction"])
+    raise KeyError(f"sampler type {typ!r} is not ported (ROADMAP.md queue 1 "
+                   "item 9: the rest of the zoo)")
 
 
 def _scatter(n, idx, values):
@@ -107,11 +115,13 @@ class SampledRois(NamedTuple):
 def proposal_target(generator, proposals, proposal_valid, gt_bboxes,
                     gt_labels, gt_valid, cfg, gt_pids=None, gt_masks=None,
                     target_means=(0.0, 0.0, 0.0, 0.0),
-                    target_stds=(0.1, 0.1, 0.2, 0.2)) -> SampledRois:
+                    target_stds=(0.1, 0.1, 0.2, 0.2),
+                    loss_fn=None) -> SampledRois:
     """RCNN sampling and targets for ONE image: gt boxes appended to the
     proposals (add_gt_as_proposals), assign, sample, bbox targets, the
     pid -> id targets of bbox_id_target and the 28x28 mask targets of the
-    positive prefix."""
+    positive prefix. ``loss_fn`` (OHEMSampler only): loss_fn(cand_boxes,
+    cand_valid, assign) -> (N,) hard-mining losses of the candidates."""
     cand = torch.cat([proposals, gt_bboxes], 0)
     cand_valid = torch.cat([proposal_valid, gt_valid], 0)
     assign = assign_from_cfg(cfg["assigner"], cand, gt_bboxes,
@@ -119,7 +129,11 @@ def proposal_target(generator, proposals, proposal_valid, gt_bboxes,
                              bbox_valid=cand_valid, gt_valid=gt_valid)
     s = cfg["sampler"]
     num = s["num"]
-    sample = sample_from_cfg(generator, s, assign)
+    ohem_loss_fn = None
+    if loss_fn is not None:
+        def ohem_loss_fn(a):
+            return loss_fn(cand, cand_valid, a)
+    sample = sample_from_cfg(generator, s, assign, loss_fn=ohem_loss_fn)
     inds, pos, valid = sample.inds, sample.pos_mask, sample.valid
     rois = cand[inds] * valid[:, None]
     gt_idx = (assign.assigned_gt_inds[inds] - 1).clamp(0, gt_bboxes.shape[0] - 1)

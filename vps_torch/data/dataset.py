@@ -15,7 +15,11 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from vps_torch.data.coco import CocoIndex, ann_to_mask
-from vps_torch.data.transforms import TrainPipeline, TestPipeline
+from vps_torch.data.transforms import (
+    MultiScaleFlipAug,
+    TestPipeline,
+    TrainPipeline,
+)
 
 try:
     import cv2
@@ -193,9 +197,10 @@ class CityscapesVPSDataset:
         )
         return self.pipeline(sample, rng)
 
-    def prepare_test(self, idx: int):
-        """Returns (img, ref_img, meta). ref = previous frame except at
-        video-span starts (cityscapes_vps.py:137-148)."""
+    def _test_frames(self, idx: int):
+        """Frame ``idx`` and its reference (the previous frame except at
+        video-span starts, cityscapes_vps.py:137-148), as loaded, and the
+        meta fields they share."""
         img_info = self.img_infos[idx]
         if idx % self.nframes_span_test > 0:
             ref_info = self.img_infos[idx - 1]
@@ -203,15 +208,31 @@ class CityscapesVPSDataset:
             ref_info = img_info
         img = self._load_img(self.img_prefix, img_info["filename"])
         ref_img = self._load_img(self.ref_prefix, ref_info["file_name"])
+        meta = dict(filename=img_info["filename"], iid=img_info["id"],
+                    is_first=(idx % self.nframes_span_test == 0))
+        return img, ref_img, meta
+
+    def prepare_test(self, idx: int):
+        """Returns (img, ref_img, meta)."""
+        img, ref_img, meta = self._test_frames(idx)
         pimg, pref, shape_nopad, factor = self.pipeline(img, ref_img)
-        meta = dict(
-            filename=img_info["filename"],
-            iid=img_info["id"],
-            is_first=(idx % self.nframes_span_test == 0),
-            img_shape_withoutpad=shape_nopad,
-            scale_factor=factor,
-        )
+        meta.update(img_shape_withoutpad=shape_nopad, scale_factor=factor)
         return pimg, pref, meta
+
+    def prepare_test_aug(self, idx: int, flip: bool = True, scales=None):
+        """Test-time augmentation variants of frame ``idx``, enumerated by
+        MultiScaleFlipAug over ``scales`` (default: the test pipeline's
+        scale) and, with ``flip``, each flipped. Returns (variants, meta):
+        variant 0 is the plain test-pipeline output; meta as prepare_test's,
+        of variant 0."""
+        img, ref_img, meta = self._test_frames(idx)
+        p = self.pipeline
+        variants = MultiScaleFlipAug(
+            img_scales=scales or (p.img_scale,), flip=flip,
+            size_divisor=p.size_divisor, mean=p.mean, std=p.std)(img, ref_img)
+        meta.update(img_shape_withoutpad=variants[0]["img_shape_withoutpad"],
+                    scale_factor=variants[0]["scale_factor"])
+        return variants, meta
 
 
 class ConcatDataset:

@@ -1,6 +1,6 @@
 """Numpy data pipeline, on the host, emitting fixed-shape samples (the
-port's copy of the JAX package's ``data/transforms.py``; the test-time
-augmentation enumerator waits for ``predict_aug``).
+port's copy of the JAX package's ``data/transforms.py``, the test-time
+augmentation enumerator ``MultiScaleFlipAug`` included).
 
 The reference train pipeline: keep-ratio resize with ratio jitter 0.8-1.5
 of (2048, 1024), horizontal flip 0.5, BGR->RGB + normalize, random crop
@@ -229,3 +229,40 @@ class TestPipeline:
             img = np.pad(img, ((0, ph), (0, pw), (0, 0)))
             ref_img = np.pad(ref_img, ((0, ph), (0, pw), (0, 0)))
         return img, ref_img, (h, w), factor
+
+
+class MultiScaleFlipAug:
+    """Test-time augmentation enumerator (mmdet's MultiScaleFlipAug): one
+    TestPipeline output per (scale x flip) variant, with the meta a caller
+    needs to invert the transforms when it merges the predictions. A flip
+    acts within the valid content region [0, w), as mmdet resizes, flips,
+    then pads: the content stays in the top-left corner, and boxes map with
+    mmdet's convention (flip over the variant's img_shape)."""
+
+    def __init__(self, img_scales=((2048, 1024),), flip=False,
+                 size_divisor=32, mean=IMG_MEAN, std=IMG_STD):
+        if isinstance(img_scales[0], int):
+            img_scales = (img_scales,)
+        self.img_scales = list(img_scales)
+        self.flip_variants = [False, True] if flip else [False]
+        self.size_divisor = size_divisor
+        self.mean = mean
+        self.std = std
+
+    def __call__(self, img, ref_img):
+        outs = []
+        for scale in self.img_scales:
+            pipe = TestPipeline(scale, self.size_divisor, self.mean, self.std)
+            base_img, base_ref, shape, factor = pipe(img, ref_img)
+            for flip in self.flip_variants:
+                v_img, v_ref = base_img, base_ref
+                if flip:
+                    hv, wv = shape
+                    v_img = base_img.copy()
+                    v_ref = base_ref.copy()
+                    v_img[:hv, :wv] = base_img[:hv, :wv][:, ::-1]
+                    v_ref[:hv, :wv] = base_ref[:hv, :wv][:, ::-1]
+                outs.append(dict(
+                    img=v_img, ref_img=v_ref, img_shape_withoutpad=shape,
+                    scale_factor=factor, flip=flip, scale=tuple(scale)))
+        return outs

@@ -1,5 +1,7 @@
-"""PanopticFuseTrack (port of vps_tpu/models/detectors/panoptic.py:
-PanopticFuseTrack.loss, _panoptic_train_loss, predict and predict_video).
+"""The VPSNet detectors (port of vps_tpu/models/detectors/panoptic.py:
+PanopticFuseTrack with its loss, _panoptic_train_loss, predict, predict_aug
+and predict_video; PanopticFuse, without the track head; PanopticTrack,
+without the flow and the fuse neck).
 
 Same per-frame contract as the JAX detector: ``predict`` takes a (1, H, W, 3)
 normalised float frame, its reference frame and the TrackState, and returns
@@ -10,8 +12,14 @@ padded gt and returns the same loss dict as JAX's ``loss``; the sampler's
 draws come from the ``torch.Generator`` it is given. Submodule names are the
 mmdet state_dict prefixes (``backbone``, ``neck``, ``extra_neck``,
 ``rpn_head``, ``bbox_head``, ``mask_head``, ``panopticFPN``, ``track_head``,
-``flownet2``). Every parameter trains except FlowNet2's and, for
-``frozen_stages = s``, the backbone's stem and stages 1..s.
+``flownet2``); a detector without a tower has no such keys. Every parameter
+trains except FlowNet2's and, for ``frozen_stages = s``, the backbone's stem
+and stages 1..s.
+
+Without a track head the detections' object ids are the running count of
+the frame's valid detections and the TrackState passes through unchanged;
+without a fuse neck the features are the plain FPN pyramid and no flow is
+computed.
 """
 
 from __future__ import annotations
@@ -27,14 +35,16 @@ import torch.nn.functional as F
 from vps_torch import resolve_device
 from vps_torch.core.targets import anchor_target, proposal_target
 from vps_torch.models.bbox_head import SharedFCBBoxHead
-from vps_torch.models.bfp_tcea import BFPTcea
+from vps_torch.models.bfp_tcea import BFPTcea, BFPTceaMulti
 from vps_torch.models.detectors.panoptic_ops import (
     TrackState,
     _paste_logit_window,
     _seg_window,
+    delta2bbox_upsnet,
     empty_track_state,
     mask_removal_and_fuse,
     panoptic_dets,
+    panoptic_dets_from_decoded,
     track_assign,
 )
 from vps_torch.models.flow.flownet2 import FlowNet2, TinyFlowNet
@@ -54,13 +64,14 @@ from vps_torch.models.track_head import (
     track_match_loss,
 )
 from vps_torch.ops.anchors import AnchorGenerator
-from vps_torch.ops.box import bbox_overlaps
+from vps_torch.ops.box import bbox_flip, bbox_overlaps
 from vps_torch.ops.losses import (
     accuracy,
     binary_cross_entropy_with_logits,
     smooth_l1_loss,
     softmax_cross_entropy,
 )
+from vps_torch.ops.nms import NEG_INF, nms, top_k
 from vps_torch.ops.roi_align import multilevel_roi_align
 
 IMG_MEAN = np.asarray([123.675, 116.28, 103.53], np.float32)
@@ -81,20 +92,27 @@ def _nhwc(x):
 
 class PanopticFuseTrack(nn.Module):
     """Flow-fused, tracking panoptic detector, built from the zoo config
-    dicts (``zoo.fusetrack_model_cfg()`` minus ``type``)."""
+    dicts (``zoo.fusetrack_model_cfg()`` minus ``type``). ``extra_neck`` and
+    ``track_head`` are optional, as in JAX; ``with_flow=False`` builds no
+    FlowNet2 (and then takes no fuse neck)."""
 
     def __init__(self, backbone: Dict[str, Any], neck: Dict[str, Any],
                  rpn_head: Dict[str, Any], bbox_head: Dict[str, Any],
                  mask_head: Dict[str, Any], panoptic: Dict[str, Any],
-                 extra_neck: Dict[str, Any], track_head: Dict[str, Any],
                  test_cfg: Dict[str, Any],
+                 extra_neck: Optional[Dict[str, Any]] = None,
+                 track_head: Optional[Dict[str, Any]] = None,
                  train_cfg: Optional[Dict[str, Any]] = None,
                  bbox_roi_extractor: Optional[Dict[str, Any]] = None,
                  mask_roi_extractor: Optional[Dict[str, Any]] = None,
                  flow: Optional[Dict[str, Any]] = None,
-                 flow_input_scale: float = 0.5, device="cuda"):
+                 flow_input_scale: float = 0.5, with_flow: bool = True,
+                 device="cuda"):
         super().__init__()
         dev = resolve_device(device)
+        if extra_neck is not None and not with_flow:
+            raise ValueError("the fuse neck (extra_neck) needs the flow: "
+                             "with_flow=False takes extra_neck=None")
         self.test_cfg = test_cfg
         self.train_cfg = train_cfg
         self.flow_input_scale = flow_input_scale
@@ -107,19 +125,25 @@ class PanopticFuseTrack(nn.Module):
         self.neck = FPN(neck.get("in_channels", (256, 512, 1024, 2048)),
                         neck.get("out_channels", 256),
                         neck.get("num_outs", 5), dtype=bdt, device=dev)
-        if extra_neck.get("type", "BFPTcea") != "BFPTcea":
-            raise ValueError(f"extra_neck {extra_neck.get('type')} is not ported")
-        self.extra_neck = BFPTcea(
-            in_channels=extra_neck.get("in_channels", 256),
-            num_levels=extra_neck.get("num_levels", 5),
-            refine_level=extra_neck.get("refine_level", 0),
-            refine_type=extra_neck.get("refine_type", "conv"),
-            nframes=extra_neck.get("nframes", 2),
-            center=extra_neck.get("center", 0),
-            compute_dtype=compute_dtype(extra_neck.get("compute_dtype"),
-                                        torch.bfloat16),
-            warp_sampling=extra_neck.get("warp_sampling", "bilinear"),
-            device=dev)
+        self.extra_neck = None
+        if extra_neck is not None:
+            necks = {"BFPTcea": BFPTcea, "BFPTceaMulti": BFPTceaMulti}
+            kind = extra_neck.get("type", "BFPTcea")
+            if kind not in necks:
+                raise ValueError(f"unknown extra_neck type {kind!r}")
+            # the detector fuses 2 frames, [current, reference], whatever the
+            # config's nframes: JAX's detector calls either neck without next
+            # frames, and flax sizes the TCEA's convs from that input
+            self.extra_neck = necks[kind](
+                in_channels=extra_neck.get("in_channels", 256),
+                num_levels=extra_neck.get("num_levels", 5),
+                refine_level=extra_neck.get("refine_level", 0),
+                refine_type=extra_neck.get("refine_type", "conv"),
+                nframes=2, center=extra_neck.get("center", 0),
+                compute_dtype=compute_dtype(extra_neck.get("compute_dtype"),
+                                            torch.bfloat16),
+                warp_sampling=extra_neck.get("warp_sampling", "bilinear"),
+                device=dev)
         self.anchor_scales = list(rpn_head.get("anchor_scales", [8]))
         self.anchor_ratios = list(rpn_head.get("anchor_ratios", [0.5, 1.0, 2.0]))
         self.anchor_strides = list(rpn_head.get("anchor_strides",
@@ -150,17 +174,21 @@ class PanopticFuseTrack(nn.Module):
             compute_dtype=compute_dtype(panoptic.get("compute_dtype"),
                                         torch.bfloat16),
             device=dev)
-        self.track_head = TrackHead(
-            track_head.get("num_fcs", 2), track_head.get("in_channels", 256),
-            track_head.get("roi_feat_size", 7),
-            track_head.get("fc_out_channels", 1024), device=dev)
-        self.match_coeff = tuple(track_head.get("match_coeff", (1.0, 2.0, 10.0)))
-        self.loss_match_weight = float(
-            track_head.get("loss_match", {}).get("loss_weight", 1.0))
+        self.track_head = None
+        if track_head is not None:
+            self.track_head = TrackHead(
+                track_head.get("num_fcs", 2), track_head.get("in_channels", 256),
+                track_head.get("roi_feat_size", 7),
+                track_head.get("fc_out_channels", 1024), device=dev)
+            self.match_coeff = tuple(track_head.get("match_coeff",
+                                                    (1.0, 2.0, 10.0)))
+            self.loss_match_weight = float(
+                track_head.get("loss_match", {}).get("loss_weight", 1.0))
         flow = flow or {}
-        if flow.get("type") == "TinyFlow":
+        self.flownet2 = None
+        if with_flow and flow.get("type") == "TinyFlow":
             self.flownet2 = TinyFlowNet(device=dev)
-        else:
+        elif with_flow:
             self.flownet2 = FlowNet2(
                 compute_dtype=compute_dtype(flow.get("compute_dtype"),
                                             torch.bfloat16), device=dev)
@@ -174,7 +202,8 @@ class PanopticFuseTrack(nn.Module):
         self.register_buffer("img_std", torch.from_numpy(IMG_STD).to(dev),
                              persistent=False)
         self.eval()  # frozen BN, no dropout: training and inference alike
-        self.flownet2.requires_grad_(False)
+        if self.flownet2 is not None:
+            self.flownet2.requires_grad_(False)
 
     # ------------------------------------------------------------------
     # shared pieces
@@ -226,13 +255,25 @@ class PanopticFuseTrack(nn.Module):
                                             stride, device=self.device))
         return anchors
 
-    def _fused_feats(self, img, ref_img, ref_feats=None):
-        """Flow + backbone (x2 at video starts, x1 in steady state) + the
-        fuse neck. Returns (fused feats, ref feats, plain current feats)."""
+    @property
+    def uses_ref_feats(self) -> bool:
+        """Whether inference reads the reference frame's pyramid (the fuse
+        neck does; without it ``predict`` ignores ``ref_feats``)."""
+        return self.extra_neck is not None
+
+    def _fused_feats(self, img, ref_img, ref_feats=None, want_ref=False):
+        """Backbone (x2 at video starts, x1 in steady state), flow and the
+        fuse neck. Returns (fused feats, ref feats, plain current feats).
+        Without a fuse neck the feats are the plain pyramid and the ref
+        feats are computed only for ``want_ref`` (else None)."""
         with _stage("backbone_fpn"):
             x = self.extract_feat(img)
-            ref_x = (ref_feats if ref_feats is not None
-                     else self.extract_feat(ref_img))
+            ref_x = None
+            if self.extra_neck is not None or want_ref:
+                ref_x = (ref_feats if ref_feats is not None
+                         else self.extract_feat(ref_img))
+        if self.extra_neck is None:
+            return x, ref_x, x
         with _stage("flownet2"):
             flow = self.compute_flow(img, ref_img, 0.25)
         with _stage("fuse_neck"):
@@ -254,7 +295,8 @@ class PanopticFuseTrack(nn.Module):
         losses = {}
         tc = self.train_cfg
         h, w = img.shape[1:3]
-        x, ref_x, _ = self._fused_feats(img, ref_img)
+        x, ref_x, _ = self._fused_feats(
+            img, ref_img, want_ref=self.track_head is not None)
 
         with _stage("semantic_head"):
             fcn_output, fcn_score = self.panopticFPN(
@@ -293,11 +335,25 @@ class PanopticFuseTrack(nn.Module):
                     nms_thr=pcfg.get("nms_thr", 0.7),
                     max_num=pcfg.get("max_num", 2000))
         with _stage("proposal_targets"):
+            rc = tc["rcnn"]
+            ohem_loss_fn = None
+            if rc.get("sampler", {}).get("type") == "OHEMSampler":
+                def ohem_loss_fn(cand, cand_valid, assign):
+                    """OHEM's hard-mining forward: the bbox head over every
+                    candidate with the current weights, each one's cross
+                    entropy against its assigned label; no gradient."""
+                    with torch.no_grad():
+                        scores, _ = self.bbox_head(
+                            self._roi_feats(x, cand, 7, valid=cand_valid))
+                        lbl = torch.where(assign.assigned_gt_inds > 0,
+                                          assign.labels.long(), 0)
+                        logp = torch.log_softmax(scores, -1)
+                        return -logp.gather(1, lbl[:, None])[:, 0]
             st = proposal_target(
                 generator, proposals, prop_valid, gt_bboxes, gt_labels,
-                gt_valid, tc["rcnn"], gt_pids=gt_pids, gt_masks=gt_masks,
+                gt_valid, rc, gt_pids=gt_pids, gt_masks=gt_masks,
                 target_means=self.bbox_target_means,
-                target_stds=self.bbox_target_stds)
+                target_stds=self.bbox_target_stds, loss_fn=ohem_loss_fn)
 
         with _stage("bbox_head"):
             bbox_feats = self._roi_feats(x, st.rois, 7, valid=st.valid)
@@ -314,16 +370,19 @@ class PanopticFuseTrack(nn.Module):
                 pred_by_label, st.bbox_targets, beta=1.0,
                 weight=st.bbox_weights, avg_factor=float(num))
 
-        with _stage("track"):
-            ref_roi_feats = self._roi_feats(ref_x, ref_bboxes, 7,
-                                            valid=ref_valid)
-            match_logits = self.track_head(bbox_feats, ref_roi_feats, ref_valid)
-            id_w = st.id_weights * st.valid  # invalid rows weigh 0
-            loss_match, match_acc = track_match_loss(match_logits, st.ids, id_w)
-            # the reference's normalisation: weighted-CE mean over ALL rows
-            loss_match = loss_match * id_w.sum() / float(num)
-            losses["loss_match"] = self.loss_match_weight * loss_match
-            losses["match_acc"] = match_acc
+        if self.track_head is not None:
+            with _stage("track"):
+                ref_roi_feats = self._roi_feats(ref_x, ref_bboxes, 7,
+                                                valid=ref_valid)
+                match_logits = self.track_head(bbox_feats, ref_roi_feats,
+                                               ref_valid)
+                id_w = st.id_weights * st.valid  # invalid rows weigh 0
+                loss_match, match_acc = track_match_loss(match_logits, st.ids,
+                                                         id_w)
+                # the reference's normalisation: weighted-CE mean over ALL rows
+                loss_match = loss_match * id_w.sum() / float(num)
+                losses["loss_match"] = self.loss_match_weight * loss_match
+                losses["match_acc"] = match_acc
 
         with _stage("mask_head"):  # on the positive prefix
             n_pos_max = st.mask_targets.shape[0]
@@ -426,8 +485,33 @@ class PanopticFuseTrack(nn.Module):
                                                (10.0, 10.0, 5.0, 5.0))))
             det_labels = (det_cls - 1).clamp(min=0)
 
-        with _stage("track"):  # against the memory snapshot
-            det_roi_feats = self._roi_feats(x, det_boxes, 7, valid=det_valid)
+        det_obj_ids, new_state = self._track(x, det_boxes, det_probs,
+                                             det_labels, det_valid, track_state)
+
+        with _stage("mask_fusion"):
+            mask_score = self._mask_scores(x, det_boxes, det_cls, det_valid)
+            fusion = mask_removal_and_fuse(
+                det_boxes, det_probs, det_cls, det_valid, det_obj_ids,
+                mask_score, fcn_output[0],
+                num_stuff=self.panopticFPN.num_stuff_classes)
+
+        outputs = self._outputs(fusion, det_boxes, det_labels, det_probs,
+                                det_valid, img_shape_withoutpad)
+        # carry for the next frame's ref_feats
+        outputs["fpn_feats"] = tuple(plain_x)
+        return outputs, new_state
+
+    def _track(self, feats, det_boxes, det_probs, det_labels, det_valid,
+               track_state: TrackState):
+        """Object ids of the dets and the new TrackState: the track head's
+        match against the memory snapshot and the greedy assignment; without
+        a track head the running count of valid dets, the state unchanged."""
+        if self.track_head is None:
+            ids = det_valid.long().cumsum(0) - 1
+            return torch.where(det_valid, ids, torch.full_like(ids, -1)), \
+                track_state
+        with _stage("track"):
+            det_roi_feats = self._roi_feats(feats, det_boxes, 7, valid=det_valid)
             st = track_state
             match_logprob = torch.log_softmax(
                 self.track_head(det_roi_feats, st.feats, st.valid), -1)
@@ -439,24 +523,24 @@ class PanopticFuseTrack(nn.Module):
                                            device=self.device), st.valid])
             comp = torch.where(col_ok[None, :], comp,
                                torch.full_like(comp, -float("inf")))
-            det_obj_ids, new_state = track_assign(
-                comp, det_boxes, det_labels, det_roi_feats, det_valid, st)
+            return track_assign(comp, det_boxes, det_labels, det_roi_feats,
+                                det_valid, st)
 
-        with _stage("mask_fusion"):
-            mask_score = self.mask_head(
-                self._roi_feats(x, det_boxes, 14, valid=det_valid))
-            mask_score = mask_score.gather(1, det_cls[:, None, None, None].expand(
-                -1, 1, *mask_score.shape[2:]))[:, 0]
-            fusion = mask_removal_and_fuse(
-                det_boxes, det_probs, det_cls, det_valid, det_obj_ids,
-                mask_score, fcn_output[0],
-                num_stuff=self.panopticFPN.num_stuff_classes)
+    def _mask_scores(self, feats, boxes, det_cls, det_valid):
+        """The mask head's 28x28 logits of each det's class."""
+        mask_score = self.mask_head(self._roi_feats(feats, boxes, 14,
+                                                    valid=det_valid))
+        return mask_score.gather(1, det_cls[:, None, None, None].expand(
+            -1, 1, *mask_score.shape[2:]))[:, 0]
 
+    @staticmethod
+    def _outputs(fusion, det_boxes, det_labels, det_probs, det_valid,
+                 img_shape_withoutpad):
         panoptic, sseg = fusion.panoptic, fusion.sseg
         if img_shape_withoutpad is not None:
             ph, pw = img_shape_withoutpad
             panoptic, sseg = panoptic[:ph, :pw], sseg[:ph, :pw]
-        outputs = {
+        return {
             "fcn_outputs": sseg,
             "panoptic_outputs": panoptic,
             "panoptic_cls_inds": fusion.keep_cls,
@@ -468,10 +552,159 @@ class PanopticFuseTrack(nn.Module):
             "det_labels": det_labels,
             "det_probs": det_probs,
             "det_valid": det_valid,
-            # carry for the next frame's ref_feats
-            "fpn_feats": tuple(plain_x),
         }
-        return outputs, new_state
+
+    @torch.inference_mode()
+    def predict_aug(self, imgs, ref_imgs, track_state: TrackState,
+                    aug_metas, img_shape_withoutpad=None):
+        """Test-time-augmented inference (JAX's ``predict_aug``: mmdet's
+        aug-test merge, test_mixins.py aug_test_rpn / aug_test_bboxes and
+        merge_augs.py, then ``predict``'s tracking and panoptic fusion).
+
+        imgs / ref_imgs: (V, 1, H, W, 3), every variant on one canvas, its
+        content in the top-left [0, h_v) x [0, w_v) (a flipped variant is
+        flipped within it). aug_metas: V dicts with ``flip``, ``scale_ratio``
+        (the variant's scale over variant 0's) and ``img_shape`` (h_v, w_v).
+        Variant 0 is the unflipped one at ratio 1: the merged detections,
+        semantic logits, tracking and panoptic outputs live in its frame.
+        Per variant: semantic logits (cut to the content, unflipped, resized
+        to variant 0's shape, padded back; then the mean) and RPN proposals
+        mapped back; the proposals of all variants merged by NMS; the bbox
+        head of each variant on the merged proposals mapped into it, its
+        decoded boxes mapped back and averaged with the probabilities; the
+        masks averaged as probabilities and turned back into logits.
+        Returns (outputs without the fpn_feats carry, new TrackState)."""
+        tcfg = self.test_cfg
+        v_count = imgs.shape[0]
+        if len(aug_metas) != v_count:
+            raise ValueError(f"{len(aug_metas)} aug metas for {v_count} variants")
+        h, w = imgs.shape[2:4]
+        metas = [(bool(m.get("flip", False)), float(m.get("scale_ratio", 1.0)),
+                  tuple(m.get("img_shape", (h, w)))) for m in aug_metas]
+        if metas[0][0] or metas[0][1] != 1.0:
+            raise ValueError("variant 0 must be unflipped at scale_ratio 1")
+        h0, w0 = metas[0][2]
+        rcfg = tcfg["rpn"]
+        nms_thr = rcfg.get("nms_thr", 0.7)
+        max_num = rcfg.get("max_num", 1000)
+
+        feats, all_props, all_scores, all_valid = [], [], [], []
+        fcn_sum = None
+        for v, (flip, ratio, (hv, wv)) in enumerate(metas):
+            x_v, _, _ = self._fused_feats(imgs[v], ref_imgs[v])
+            feats.append(x_v)
+            with _stage("semantic_head"):
+                fcn_v = self.panopticFPN(
+                    list(x_v[:self.panopticFPN.num_levels]))[0][0]
+                if flip or (hv, wv) != (h, w):
+                    fcn_v = fcn_v[:, :hv, :wv]
+                    if flip:
+                        fcn_v = fcn_v.flip(-1)
+                    if (hv, wv) != (h0, w0):
+                        fcn_v = resize_bilinear(fcn_v[None], (h0, w0))[0]
+                    fcn_v = F.pad(fcn_v, (0, w - fcn_v.shape[2],
+                                          0, h - fcn_v.shape[1]))
+                fcn_sum = fcn_v if fcn_sum is None else fcn_sum + fcn_v
+            with _stage("rpn"):
+                cls_outs, reg_outs = self.rpn_head(x_v)
+                props, scores, pvalid = rpn_proposals(
+                    [c[0].permute(1, 2, 0) for c in cls_outs],
+                    [r[0].permute(1, 2, 0) for r in reg_outs],
+                    self._anchors_for(cls_outs), (hv, wv),
+                    nms_pre=rcfg.get("nms_pre", 1000), nms_thr=nms_thr,
+                    max_num=max_num)
+            all_props.append(self._map_boxes_back(props, flip, ratio, (hv, wv)))
+            all_scores.append(scores)
+            all_valid.append(pvalid)
+        fcn_mean = fcn_sum / v_count
+
+        with _stage("rpn"):  # merge_aug_proposals: one NMS, the best max_num
+            cat_p, cat_s, cat_v = (torch.cat(t, 0) for t in
+                                   (all_props, all_scores, all_valid))
+            keep = nms(cat_p, torch.where(cat_v, cat_s, torch.zeros_like(cat_s)),
+                       nms_thr, valid=cat_v)
+            top_s, top_i = top_k(torch.where(keep, cat_s,
+                                             torch.full_like(cat_s, NEG_INF)),
+                                 max_num)
+            prop_valid = top_s > NEG_INF / 2
+            proposals = cat_p[top_i] * prop_valid[:, None]
+
+        pano_cfg = tcfg.get("panoptic", {})
+        reg_w = tuple(pano_cfg.get("bbox_reg_weights", (10.0, 10.0, 5.0, 5.0)))
+        with _stage("bbox_dets"):
+            boxes_sum = probs_sum = None
+            for v, (flip, ratio, hw) in enumerate(metas):
+                props_v = self._map_boxes_into(proposals, flip, ratio, hw)
+                cls_score, bbox_pred = self.bbox_head(
+                    self._roi_feats(feats[v], props_v, 7, valid=prop_valid))
+                boxes_v = self._map_boxes_back(
+                    delta2bbox_upsnet(props_v, bbox_pred, reg_w, hw),
+                    flip, ratio, hw)
+                probs_v = torch.softmax(cls_score, -1)
+                boxes_sum = boxes_v if boxes_sum is None else boxes_sum + boxes_v
+                probs_sum = probs_v if probs_sum is None else probs_sum + probs_v
+            det_boxes, det_probs, det_cls, det_valid = panoptic_dets_from_decoded(
+                boxes_sum / v_count, probs_sum / v_count, prop_valid,
+                score_thresh=pano_cfg.get("score_thresh", 0.6),
+                nms_thresh=pano_cfg.get("nms_thresh", 0.5),
+                top_n=pano_cfg.get("max_det", 100))
+            det_labels = (det_cls - 1).clamp(min=0)
+
+        # tracking in variant 0's frame, on its features
+        det_obj_ids, new_state = self._track(feats[0], det_boxes, det_probs,
+                                             det_labels, det_valid, track_state)
+
+        with _stage("mask_fusion"):  # merge_aug_masks: mean probability
+            prob_sum = None
+            for v, (flip, ratio, hw) in enumerate(metas):
+                prob = torch.sigmoid(self._mask_scores(
+                    feats[v], self._map_boxes_into(det_boxes, flip, ratio, hw),
+                    det_cls, det_valid))
+                if flip:
+                    prob = prob.flip(-1)
+                prob_sum = prob if prob_sum is None else prob_sum + prob
+            mean_prob = (prob_sum / v_count).clamp(1e-6, 1.0 - 1e-6)
+            mask_logits = torch.log(mean_prob) - torch.log1p(-mean_prob)
+            fusion = mask_removal_and_fuse(
+                det_boxes, det_probs, det_cls, det_valid, det_obj_ids,
+                mask_logits, fcn_mean,
+                num_stuff=self.panopticFPN.num_stuff_classes)
+        return self._outputs(fusion, det_boxes, det_labels, det_probs,
+                             det_valid, img_shape_withoutpad), new_state
+
+    @staticmethod
+    def _map_boxes_back(boxes, flip: bool, ratio: float, canvas_hw):
+        """mmdet's bbox_mapping_back: a variant's frame -> variant 0's
+        (unflip over the variant's content shape, then / ratio)."""
+        if flip:
+            boxes = bbox_flip(boxes, canvas_hw)
+        return boxes / ratio if ratio != 1.0 else boxes
+
+    @staticmethod
+    def _map_boxes_into(boxes, flip: bool, ratio: float, canvas_hw):
+        """mmdet's bbox_mapping: variant 0's frame -> a variant's."""
+        if ratio != 1.0:
+            boxes = boxes * ratio
+        return bbox_flip(boxes, canvas_hw) if flip else boxes
+
+
+class PanopticFuse(PanopticFuseTrack):
+    """Flow fusion without tracking (mmdet's panoptic_fuse.py): no track
+    head unless one is given."""
+
+
+class PanopticTrack(PanopticFuseTrack):
+    """Tracking without flow fusion (mmdet's panoptic_track.py): no
+    FlowNet2 and no fuse neck."""
+
+    def __init__(self, *args, extra_neck=None, with_flow: bool = False,
+                 **kwargs):
+        super().__init__(*args, extra_neck=extra_neck, with_flow=with_flow,
+                         **kwargs)
+
+
+DETECTORS = {cls.__name__: cls
+             for cls in (PanopticFuseTrack, PanopticFuse, PanopticTrack)}
 
 
 @torch.inference_mode()
@@ -485,8 +718,9 @@ def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
     carry recomputed). prev_img / prev_feats: last frame (and its pyramid) of
     the previous chunk; prev_feats=None computes it from prev_img. Returns
     (outputs stacked over frames without the fpn_feats carry,
-    (state, feats, last_img))."""
-    if prev_feats is None:
+    (state, feats, last_img)). A detector without a fuse neck reads no
+    reference pyramid: none is computed, and the carry's feats are None."""
+    if prev_feats is None and det.uses_ref_feats:
         prev_feats = det.extract_feat(prev_img)
     state, ref_feats, prev = track_state, prev_feats, prev_img
     frames = []
@@ -495,13 +729,14 @@ def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
         if bool(resets[t]):
             state = TrackState(*(torch.zeros_like(a) for a in state))
             ref_img = img
-            ref_feats = det.extract_feat(img)
+            ref_feats = det.extract_feat(img) if det.uses_ref_feats else None
         else:
             ref_img = prev
         outputs, state = det.predict(img, ref_img, state,
                                      img_shape_withoutpad=img_shape_withoutpad,
                                      ref_feats=ref_feats)
-        ref_feats = outputs.pop("fpn_feats")
+        feats = outputs.pop("fpn_feats")
+        ref_feats = feats if det.uses_ref_feats else None
         prev = img
         frames.append(outputs)
     stacked = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
@@ -529,7 +764,8 @@ def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
             torch.as_tensor(ref_img, device=det.device)[None], carry["state"],
             img_shape_withoutpad=img_shape_withoutpad,
             ref_feats=carry["feats"])
-        carry["feats"] = outputs.pop("fpn_feats")
+        feats = outputs.pop("fpn_feats")
+        carry["feats"] = feats if det.uses_ref_feats else None
         return outputs
 
     return step
@@ -537,14 +773,16 @@ def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
 
 def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
                    device="cuda") -> PanopticFuseTrack:
-    """A detector from a config's ``model`` dict (its ``type`` names the
-    class; PanopticFuseTrack is the one ported)."""
+    """A detector from a config's ``model`` dict, its ``type`` naming the
+    class: PanopticFuseTrack, PanopticFuse or PanopticTrack. A tower set to
+    None (``track_head``, ``extra_neck``) is left out."""
     cfg = dict(model_cfg)
     kind = cfg.pop("type", "PanopticFuseTrack")
-    if kind != "PanopticFuseTrack":
-        raise ValueError(f"detector type {kind!r} is not ported")
-    return PanopticFuseTrack(train_cfg=train_cfg, test_cfg=test_cfg,
-                             device=device, **cfg)
+    if kind not in DETECTORS:
+        raise ValueError(f"unknown detector type {kind!r}; the port has "
+                         f"{sorted(DETECTORS)}")
+    return DETECTORS[kind](train_cfg=train_cfg, test_cfg=test_cfg,
+                           device=device, **cfg)
 
 
 def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:

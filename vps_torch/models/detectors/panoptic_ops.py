@@ -61,10 +61,19 @@ def panoptic_dets(rois, roi_valid, cls_prob, bbox_pred, img_shape,
     capped at top_n. Returns (boxes (top_n, 4), probs, 1-based classes,
     valid)."""
     boxes_all = delta2bbox_upsnet(rois, bbox_pred, reg_weights, img_shape)
+    return panoptic_dets_from_decoded(boxes_all, cls_prob, roi_valid,
+                                      score_thresh, nms_thresh, top_n)
+
+
+def panoptic_dets_from_decoded(boxes_all, cls_prob, roi_valid,
+                               score_thresh=0.6, nms_thresh=0.5, top_n=100):
+    """MaskROI after the decode: per-class boxes (N, C, 4) and class probs
+    (N, C) in; ``predict_aug`` feeds the variants' averaged boxes and
+    probs here (mmdet's merge_aug_bboxes, then one NMS)."""
     n, num_classes = cls_prob.shape
     boxes_fg = boxes_all[:, 1:, :].reshape(-1, 4)
     probs_fg = cls_prob[:, 1:].reshape(-1)
-    cls_fg = torch.arange(1, num_classes, device=rois.device).repeat(n)
+    cls_fg = torch.arange(1, num_classes, device=cls_prob.device).repeat(n)
     cand_valid = (probs_fg > score_thresh) & roi_valid.repeat_interleave(
         num_classes - 1)
     pre_nms = min(PRE_NMS, boxes_fg.shape[0])

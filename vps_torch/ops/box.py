@@ -73,3 +73,10 @@ def bbox_overlaps(boxes1, boxes2):
     area2 = bbox_area(boxes2)[..., None, :]
     union = area1 + area2 - overlap
     return overlap / union.clamp(min=1e-6)
+
+
+def bbox_flip(boxes, img_shape):
+    """Horizontal flip with the legacy -1 convention, img_shape = (H, W)."""
+    w = img_shape[1]
+    return torch.stack([w - boxes[..., 2] - 1, boxes[..., 1],
+                        w - boxes[..., 0] - 1, boxes[..., 3]], dim=-1)

@@ -138,6 +138,7 @@ def _forward(f1, f2, max_displacement, stride2):
             cuda_build.stream_ptr(f1.device))
     cuda_build.check(lib, rc, "correlation kernel launch")
     correlation.launches += 1
+    correlation.route_launches["corr_bf16_tc" if bf16 else "corr_f32"] += 1
     return out
 
 
@@ -204,4 +205,6 @@ def correlation_backward(g, f1, f2, max_displacement: int, stride2: int = 1):
 
 
 correlation.launches = 0  # forward kernel launches (CUDA path only)
+# the same launches by the kernel that ran: bf16 and f32 routes
+correlation.route_launches = {"corr_bf16_tc": 0, "corr_f32": 0}
 correlation_backward.launches = 0  # backward kernel launches (CUDA path only)

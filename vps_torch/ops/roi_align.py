@@ -69,7 +69,9 @@ def _taps(rois, shapes, strides, out_size: int, sample_num: int,
     scale = torch.sqrt((rois[:, 2] - rois[:, 0] + 1.0)
                        * (rois[:, 3] - rois[:, 1] + 1.0))
     lvl = torch.floor(torch.log2(scale / FINEST_SCALE + 1e-6))
-    lvl = lvl.clamp(0, len(shapes) - 1).long()
+    # an inverted box (x2 < x1 - 1, possible after a clip) has a NaN scale:
+    # level 0, as JAX's float -> int conversion makes it
+    lvl = torch.nan_to_num(lvl, nan=0.0).clamp(0, len(shapes) - 1).long()
 
     hs = torch.tensor([s[0] for s in shapes], dtype=torch.float32, device=dev)
     ws = torch.tensor([s[1] for s in shapes], dtype=torch.float32, device=dev)

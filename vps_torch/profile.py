@@ -1,16 +1,18 @@
 """Where a steady-state FuseTrack frame spends its time on the card.
 
     python -m vps_torch.profile [--frames 3] [--dcn-window R]
+        [--detector PanopticFuseTrack|PanopticFuse|PanopticTrack]
 
-Builds PanopticFuseTrack at the R-50 `half-flow` preset with seeded random
-weights (as chip_smoke.py does; ``--dcn-window R`` sets
-``panoptic.dcn_window``, the windowed semantic head), runs two warm-up
-frames, then profiles
+Builds the detector (PanopticFuseTrack unless ``--detector``; PanopticFuse
+has no track head, PanopticTrack no flow and no fuse neck) at the R-50
+`half-flow` preset with seeded random weights (as chip_smoke.py does;
+``--dcn-window R`` sets ``panoptic.dcn_window``, the windowed semantic
+head), runs two warm-up frames, then profiles
 ``--frames`` steady-state frames with torch.profiler and prints: the frame
 time on the host clock without and with the profiler, the device-busy share
 of the profiled window (summed kernel time / wall time), device time per
 predict stage (kernel time and host time of the named ranges in
-PanopticFuseTrack.predict), the host syncs, the port's own kernels
+PanopticFuseTrack.predict, those the detector has), the host syncs, the port's own kernels
 (``vps_torch/csrc``) and the kernels with the most device time. The port's
 kernels are launched through ctypes, outside any PyTorch op, and the
 profiler links a kernel to a named range only through an op: the stage sums
@@ -36,11 +38,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from vps_torch import zoo
 from vps_torch.models.detectors import (
-    PanopticFuseTrack,
+    build_detector,
     empty_track_state,
     predict_video,
     random_init_,
 )
+from vps_torch.models.detectors.panoptic import DETECTORS
 from vps_torch.utils.numerics import describe, f32_policy
 
 STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
@@ -53,6 +56,17 @@ TRAIN_STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
 # name parts of the kernels in vps_torch/csrc
 PORT_KERNELS = ("corr_bf16_tc", "corr_f32", "corr_backward", "dcw_fused",
                 "dcw_mix", "sum_parts")
+
+
+def stages_of(det, stages=STAGES):
+    """The named ranges ``det`` runs: without a fuse neck no flownet2 or
+    fuse_neck, without a track head no track."""
+    absent = set()
+    if det.extra_neck is None:
+        absent |= {"flownet2", "fuse_neck"}
+    if det.track_head is None:
+        absent.add("track")
+    return tuple(s for s in stages if s not in absent)
 
 
 def _kernel_us(evt) -> float:
@@ -139,7 +153,8 @@ def train_step(det, batch, optimizer, generator, prefix="train: ") -> None:
           f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
           f"{sum(kernels.values()) / (wall_s * 1e6):.3f}; backward kernels "
           f"(autograd engine) {backward_us / 1e3:.1f} ms")
-    _summary(events, kernels, TRAIN_STAGES, 1, "step", prefix, top=8)
+    _summary(events, kernels, stages_of(det, TRAIN_STAGES), 1, "step", prefix,
+             top=8)
 
 
 def main(argv=None) -> None:
@@ -148,6 +163,8 @@ def main(argv=None) -> None:
     ap.add_argument("--dcn-window", type=int, default=None,
                     help="clamp the semantic head's DCN offsets to +-R and "
                          "run its windowed kernel (default: exact DCN)")
+    ap.add_argument("--detector", default="PanopticFuseTrack",
+                    choices=sorted(DETECTORS))
     args = ap.parse_args(argv)
     numerics = f32_policy()
     if not torch.cuda.is_available():
@@ -155,10 +172,14 @@ def main(argv=None) -> None:
     h, w = 1024, 2048
 
     cfg = zoo.fusetrack_model_cfg()
-    cfg.pop("type")
+    cfg["type"] = args.detector
+    if args.detector == "PanopticFuse":
+        cfg["track_head"] = None
+    elif args.detector == "PanopticTrack":
+        cfg["extra_neck"] = None
     cfg["panoptic"]["dcn_window"] = args.dcn_window
-    det = random_init_(PanopticFuseTrack(test_cfg=zoo.fusetrack_test_cfg(),
-                                         device="cuda", **cfg), seed=0)
+    det = random_init_(build_detector(cfg, test_cfg=zoo.fusetrack_test_cfg(),
+                                      device="cuda"), seed=0)
     rng = np.random.RandomState(0)
     n = 2 + 2 * args.frames
     frames = torch.from_numpy(rng.randn(n, 1, h, w, 3).astype(np.float32)).cuda()
@@ -183,11 +204,12 @@ def main(argv=None) -> None:
     events = prof.events()
     kernels = _device_kernels(events, STAGES)
     busy = sum(kernels.values()) / (wall_s * 1e6)
-    print(f"frame (dcn_window={args.dcn_window}): {plain_s * 1e3:.1f} ms "
+    print(f"frame ({args.detector}, dcn_window={args.dcn_window}): "
+          f"{plain_s * 1e3:.1f} ms "
           f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
           f"device busy {busy:.3f} of the profiled window ({args.frames} "
           f"frames, {h}x{w}); {describe(numerics)}")
-    _summary(events, kernels, STAGES, args.frames, "frame")
+    _summary(events, kernels, stages_of(det), args.frames, "frame")
 
 
 if __name__ == "__main__":

@@ -8,12 +8,15 @@ the unified 3-channel panoptic maps are built and ``pan_pred/*.png`` +
     python -m vps_torch.tools.test_vpq CONFIG --checkpoint CKPT --out OUT.pkl
         [--preset half-flow] [--pan_im_json_file GT.json] [--lambda 5]
         [--labeled_fid 20] [--nframes_per_video 6] [--track_cap 256]
-        [--device cuda|cpu]
+        [--aug] [--aug-scales 1024x512,...] [--device cuda|cpu]
 
 Writes ``OUT_pano.pkl`` (the per-frame semantic and panoptic maps, class
 indices and track ids) and ``OUT_pans_unified/``. Runs on the card unless
-``--device cpu``. The on-device chunked and multi-stream paths, test-time
-augmentation and visualisation are not ported.
+``--device cpu``. ``--aug`` runs test-time augmentation: each frame and its
+horizontal flip (and, with ``--aug-scales``, each extra scale and its flip)
+enumerated by the dataset's ``prepare_test_aug``, packed onto one canvas and
+merged by the detector's ``predict_aug``. The on-device chunked and
+multi-stream paths and visualisation are not ported.
 """
 
 from __future__ import annotations
@@ -27,12 +30,17 @@ import statistics
 import time
 
 import numpy as np
+import torch
 
 from vps_torch import resolve_device, zoo
 from vps_torch.config import Config
 from vps_torch.data import build_dataset
 from vps_torch.eval.unified import get_unified_pan_result, save_panoptic_outputs
-from vps_torch.models.detectors import build_detector, make_frame_step
+from vps_torch.models.detectors import (
+    build_detector,
+    empty_track_state,
+    make_frame_step,
+)
 from vps_torch.utils.checkpoint import load_checkpoint
 from vps_torch.utils.numerics import describe, f32_policy
 
@@ -55,8 +63,85 @@ def parse_args(argv=None):
                    help="inference preset applied to the model cfg "
                         "(zoo.PRESETS); presets are param-free, so any "
                         "checkpoint loads unchanged")
+    p.add_argument("--aug", action="store_true",
+                   help="test-time augmentation: horizontal-flip variants "
+                        "merged with mmdet's aug-test semantics")
+    p.add_argument("--aug-scales", default=None,
+                   help="comma-separated extra TTA scales as WxH (e.g. "
+                        "'1024x512'); the config's test scale is always "
+                        "variant 0. Implies --aug")
     p.add_argument("--device", default="cuda")
     return p.parse_args(argv)
+
+
+def pack_variants(variants):
+    """The TTA variants of one frame on one zero-padded canvas, each in its
+    top-left corner: (imgs, ref_imgs) of shape (V, 1, Hc, Wc, 3)."""
+    hc = max(v["img"].shape[0] for v in variants)
+    wc = max(v["img"].shape[1] for v in variants)
+    imgs = np.zeros((len(variants), 1, hc, wc, 3), np.float32)
+    refs = np.zeros_like(imgs)
+    for i, v in enumerate(variants):
+        hh, ww = v["img"].shape[:2]
+        imgs[i, 0, :hh, :ww] = v["img"]
+        refs[i, 0, :hh, :ww] = v["ref_img"]
+    return imgs, refs
+
+
+def aug_metas_of(variants):
+    """predict_aug's per-variant metas: flip, the scale over variant 0's,
+    the content shape."""
+    return tuple(dict(flip=v["flip"],
+                      scale_ratio=v["scale_factor"] / variants[0]["scale_factor"],
+                      img_shape=tuple(v["img_shape_withoutpad"]))
+                 for v in variants)
+
+
+def _aug_frames(det, dataset, args, device):
+    """The --aug loop: yields (run, meta) frame by frame, run() returning
+    the frame's outputs; a video's first frame clears the track state."""
+    tta_scales = None
+    if args.aug_scales:
+        extra = [tuple(int(x) for x in s.split("x"))
+                 for s in args.aug_scales.split(",")]
+        tta_scales = [tuple(dataset.pipeline.img_scale)] + extra
+    aug_metas, carry = None, {}
+    for idx in range(len(dataset)):
+        variants, meta = dataset.prepare_test_aug(idx, flip=True,
+                                                  scales=tta_scales)
+        metas = aug_metas_of(variants)
+        if aug_metas is None:
+            aug_metas = metas
+        elif metas != aug_metas:
+            raise ValueError(f"aug meta changed mid-run (frame {idx}): "
+                             f"{metas} != {aug_metas}; every frame must "
+                             f"have the first frame's raw size")
+        if not carry or meta["is_first"]:
+            carry["state"] = empty_track_state(args.track_cap, device=device)
+        imgs, refs = pack_variants(variants)
+
+        def run(imgs=imgs, refs=refs, meta=meta):
+            outputs, carry["state"] = det.predict_aug(
+                torch.as_tensor(imgs, device=device),
+                torch.as_tensor(refs, device=device), carry["state"],
+                aug_metas,
+                img_shape_withoutpad=tuple(meta["img_shape_withoutpad"]))
+            return outputs
+
+        yield run, meta
+
+
+def _plain_frames(det, dataset, args):
+    """The per-frame loop: yields (run, meta) frame by frame."""
+    step = None
+    for idx in range(len(dataset)):
+        img, ref_img, meta = dataset.prepare_test(idx)
+        if step is None:  # the first frame's unpadded shape, for every frame
+            step = make_frame_step(
+                det, track_cap=args.track_cap,
+                img_shape_withoutpad=tuple(meta["img_shape_withoutpad"]))
+        yield (lambda img=img, ref=ref_img, first=meta["is_first"]:
+               step(img, ref, first)), meta
 
 
 def main(argv=None):
@@ -75,19 +160,15 @@ def main(argv=None):
     det.load_state_dict(restored["state_dict"])
     dataset = build_dataset(cfg.data["test"])
 
+    aug = bool(args.aug or args.aug_scales)
+    frames = (_aug_frames(det, dataset, args, device) if aug
+              else _plain_frames(det, dataset, args))
     results = dict(all_names=[], all_ssegs=[], all_panos=[],
                    all_pano_cls_inds=[], all_pano_obj_ids=[])
-    step = None
     steady_s = []
-    for idx in range(len(dataset)):
-        img, ref_img, meta = dataset.prepare_test(idx)
-        if step is None:  # the first frame's unpadded shape, for every frame
-            step = make_frame_step(
-                det, track_cap=args.track_cap,
-                img_shape_withoutpad=tuple(meta["img_shape_withoutpad"]))
+    for run, meta in frames:
         t0 = time.perf_counter()
-        outputs = step(img, ref_img, meta["is_first"])
-        out = {k: v.cpu().numpy() for k, v in outputs.items()}
+        out = {k: v.cpu().numpy() for k, v in run().items()}
         if not meta["is_first"]:
             steady_s.append(time.perf_counter() - t0)
         nk = int(out["num_keep"])
@@ -129,12 +210,13 @@ def main(argv=None):
         labeled_fid=args.labeled_fid,
         nframes_per_video=args.nframes_per_video)
     fps = (len(steady_s) / sum(steady_s)) if steady_s else float("nan")
-    print(f"test_vpq: {len(dataset)} frames on {device}, {len(steady_s)} "
+    print(f"test_vpq{' --aug' if aug else ''}: {len(dataset)} frames on "
+          f"{device}, {len(steady_s)} "
           f"after a video's first at {fps:.3f} frames/s (median "
           f"{statistics.median(steady_s) if steady_s else float('nan'):.4f} "
           f"s: predict + outputs to the host); {len(names)} artifacts in "
           f"{output_dir}; {describe(numerics)}")
-    return dict(frames=len(dataset), steady_s=steady_s, pickle=pkl,
+    return dict(frames=len(dataset), steady_s=steady_s, pickle=pkl, aug=aug,
                 output_dir=output_dir, artifacts=names, numerics=numerics)
 
 

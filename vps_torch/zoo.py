@@ -124,7 +124,8 @@ def fast_overrides(cfg):
     if cfg.get("mask_roi_extractor"):
         cfg["mask_roi_extractor"]["roi_layer"]["sample_num"] = 1
     cfg["flow_input_scale"] = 0.25
-    cfg["extra_neck"]["warp_sampling"] = "nearest"
+    if cfg.get("extra_neck"):
+        cfg["extra_neck"]["warp_sampling"] = "nearest"
     return cfg
 
 
