@@ -7,15 +7,23 @@ Phases, each printing its own line of numbers:
                  nvcc per source, all started together; prints the build
                  times and the card (nvidia-smi).
   2. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes its path gives it (and ragged ones), with the
-                 tolerance stated; CUDA-event medians beside the bound. The
+                 at the shapes its path gives it (VIPER's frame size among
+                 them) and ragged ones, with the tolerance stated;
+                 CUDA-event medians beside the bound. The
                  correlation backward against the plain version's gradients
                  at the training shape and FlowNetC's geometry.
   3. main     -- PanopticFuseTrack at the full R-50 `half-flow` preset with
                  seeded random weights, predict_video over seeded random
                  1024x2048 frames (the first a reset); asserts finite outputs
                  of the contract shapes and the kernel launch counts;
-                 prints steady-state frames/s and peak device memory.
+                 prints steady-state frames/s and peak device memory. Then
+                 where two predict_video runs part without the inference
+                 policy ("inference determinism": the first op to differ,
+                 then the same under the policy, and the ops
+                 use_deterministic_algorithms flags), and the clip driven
+                 twice under vps_torch.utils.numerics.inference_policy,
+                 whose outputs must be bitwise equal, with the frame rate
+                 with and without the policy ("main repeatable").
      window   -- the same with `panoptic.dcn_window = 4`: the semantic head's
                  12 deformable convs a frame run the windowed kernel.
      train    -- FuseTrack training at full width: R-50, f32 compute, one
@@ -61,6 +69,18 @@ Phases, each printing its own line of numbers:
                  against itself, or a kernel that did not launch; then
                  tools.test_vpq --aug (each frame and its flip) on the same
                  checkpoint, scored by tools.eval_vpq.
+  6. viper    -- VIPER from files to VPQ: a synthetic fixture in VIPER's
+                 format at 1080x1920 (tests/viper_fixture.py: 23 classes,
+                 things 13..22; 1 train video of 4 frames, 2 val videos of
+                 15), vps_torch.tools.train on the port's
+                 configs/viper/fusetrack.py (R-50, f32, 4 steps),
+                 tools.test_vpq at half-flow streamed (--chunk 4 --streams
+                 2) and frame by frame (--chunk 1), VIPER's evaluator at
+                 windows 1, 5, 10, 15 and tools.eval_ipq, in this process;
+                 fails on a non-finite loss, a skipped step, a frame
+                 without an artifact, the two test_vpq runs not byte-equal,
+                 PQ outside [0, 100], the GT not scoring 100 against itself
+                 at every window, or a kernel that did not launch.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
@@ -76,6 +96,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import statistics
 import subprocess
@@ -108,6 +129,15 @@ TRAIN_STEPS = 6
 OHEM = dict(type="OHEMSampler", num=512, pos_fraction=0.25)
 OHEM_STEPS = 4
 TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
+# the "viper" phase: a synthetic fixture in VIPER's format at its frame size
+# (1 train video of 4 frames, 2 val videos of 15: VIPER's largest VPQ
+# window); the test scale (2048, 1024) takes the frame to 1820x1024, padded
+# to 1824x1024; LiteFlowNetCorr's input is its 1/4 level
+VIPER_H, VIPER_W = 1080, 1920
+VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 4, 2, 15
+VIPER_CHUNK, VIPER_STREAMS = 4, 2
+VIPER_TEST = (1024, 1824)
+VIPER_CORR = (1, VIPER_TEST[0] // 4, VIPER_TEST[1] // 4, 256)
 # the Runner's checkpoints go to a temporary directory in here (git-ignored)
 WORK_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "work_dirs")
 # the Cityscapes palette's first 19 classes, for rendering synthetic frames
@@ -224,6 +254,7 @@ def phase_kernels_correlation():
     half-flow main path: the tensor-core kernel; and f32: the register-tiled
     SIMT kernel), at both call sites of the f32 train path (the 800x1600
     crop) and of the f32 `exact` preset (FlowNetC at flow_input_scale 1.0),
+    at VIPER's frame size (half-flow bf16 and exact f32, both call sites),
     at ragged shapes (C = 30 and 300, staged element by element; C = 512;
     stride2 3, 5 and 6; B = 3; H < md, so every displacement row is partly
     outside the map), and at FlowNetC's geometry with W = 100, not a
@@ -244,6 +275,14 @@ def phase_kernels_correlation():
     cases += [("train-liteflow", TRAIN_CORR, 4, 1, "float32"),
               ("train-flownetc", flownetc_shape(TRAIN_H, TRAIN_W), 20, 2, "float32"),
               ("exact-flownetc", flownetc_shape(H, W, 1.0), 20, 2, "float32")]
+    # VIPER's 1080x1920 frame at the test scale (1820x1024, padded to
+    # 1824x1024): half-flow (bf16) and exact (f32) at both call sites;
+    # widths 456 and 120 / 232, not multiples of 64
+    cases += [("viper-liteflow", VIPER_CORR, 4, 1, "bfloat16"),
+              ("viper-flownetc", flownetc_shape(*VIPER_TEST), 20, 2, "bfloat16"),
+              ("viper-exact-liteflow", VIPER_CORR, 4, 1, "float32"),
+              ("viper-exact-flownetc", flownetc_shape(*VIPER_TEST, 1.0), 20, 2,
+               "float32")]
     cases += [("ragged", (2, 37, 53, 96), 4, 1, dt) for dt in ("bfloat16", "float32")]
     # C = 30: element-wise staging and a partial channel chunk
     cases += [("ragged", (2, 37, 53, 30), 6, 2, dt) for dt in ("bfloat16", "float32")]
@@ -675,6 +714,8 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
         raise AssertionError(f"windowed weight layouts rebuilt after frame 0: "
                              f"{len(dcns) - kept} of {len(dcns)}")
     name = "main" if dcn_window is None else "window"
+    if dcn_window is None:
+        _repeatable(det, frames, device, out, fps, smi)
     print(f"{name}: PanopticFuseTrack R-50 half-flow dcn_window={dcn_window} "
           f"{h}x{w} x{FRAMES} frames "
           f"(frame 0 reset), init {init_s:.1f}s, first frame {first_s:.3f}s, "
@@ -686,6 +727,37 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
           + f"dets/frame {out['det_valid'].sum(1).tolist()}, kept/frame "
           f"{out['num_keep'].tolist()}, TF32 off; card: {smi}")
     return launches
+
+
+def _repeatable(det, frames, device, out, fps, smi):
+    """The main path's repeatability: where two predict_video runs part
+    (_predict_determinism, over the clip's first 3 frames), then the clip
+    driven twice under ``inference_policy``, whose outputs must be bitwise
+    equal, and once more without it, compared with ``out``, the main path's
+    own run (without the policy); prints the steady frames/s of each run
+    beside ``fps``, the main run's."""
+    import torch
+    from vps_torch.utils.numerics import inference_policy
+
+    _predict_determinism(det, frames[:3])
+    runs = []
+    with inference_policy():
+        for _ in range(2):
+            o, _, _, f, _, _ = _drive(det, frames, device)
+            runs.append((o, f))
+    free, _, _, ffree, _, _ = _drive(det, frames, device)
+    (a, fa), (b, fb) = runs
+    same = [k for k in a if torch.equal(a[k], b[k])]
+    same_free = [k for k in out if torch.equal(out[k], free[k])]
+    print(f"main repeatable: the clip twice under inference_policy (cuDNN "
+          f"deterministic, no benchmark): {len(same)} of {len(a)} outputs "
+          f"bitwise equal; twice without it: {len(same_free)} of {len(out)}; "
+          f"steady frames/s without the policy {fps:.3f} (the main run), "
+          f"{ffree:.3f} (after); with it {fa:.3f}, {fb:.3f}; card: {smi}")
+    if len(same) != len(a):
+        raise AssertionError(f"main: outputs under inference_policy differ "
+                             f"between two runs at "
+                             f"{sorted(set(a) - set(same))}")
 
 
 def _clip(n, h, w, seed):
@@ -1058,7 +1130,8 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
         test_args = [cfg_path, "--checkpoint", ckpt, "--preset", "half-flow",
                      "--lambda", "1", "--labeled_fid", "0",
                      "--nframes_per_video", str(val_frames),
-                     "--pan_im_json_file", gt_json, "--device", device]
+                     "--pan_im_json_file", gt_json, "--chunk", "1",
+                     "--device", device]
         _reset_counts()
         summary = test_vpq.main(test_args + [
             "--out", os.path.join(tmp, "out", "val.pkl")])
@@ -1163,20 +1236,261 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
     return got
 
 
-def _fingerprints(det, batch, seed, modules=None):
-    """One forward of the training loss with the Runner's first draws
-    (generator seeded as the Runner seeds it). Returns ({point: exact
-    fingerprint} in the order recorded, total, loss terms). Points: the
-    input ("<in") and output of each of ``modules`` (name, module) pairs,
-    the detector's top-level modules by default, one point per call and
-    tensor; the proposals and the sampled RoIs; each loss term. A module's
-    points are recorded when it returns, so a leaf's come before its
-    parent's. A fingerprint sums the raw bits of a tensor as int64 with
-    position weights: equal tensors give equal fingerprints, whatever the
-    order of the sum."""
+VIPER_CONFIG = """
+_base_ = r"{base}"
+data = dict(
+    workers_per_gpu=0,
+    train=dict(ann_file=r"{train_ann}", img_prefix=r"{train_img}",
+               ref_prefix=r"{train_img}", seg_prefix=r"{train_seg}",
+               ref_ann_file=r"{train_ann}"),
+    test=dict(ann_file=r"{val_ann}", img_prefix=r"{val_img}",
+              ref_prefix=r"{val_img}", nframes_span_test={frames}),
+)
+log_config = dict(interval=1)
+total_epochs = 1
+"""
+# the CPU rehearsal's model and pipelines: the tiny model with VIPER's heads
+VIPER_TINY = """
+from vps_torch import zoo
+model = zoo.tiny_overrides(zoo.fusetrack_model_cfg())
+model["panoptic"].update(num_things_classes=10, num_classes=23)
+model["bbox_head"]["num_classes"] = 11
+model["mask_head"]["num_classes"] = 11
+train_cfg = zoo.tiny_train_cfg()
+test_cfg = zoo.tiny_test_cfg()
+data["train"]["pipeline"] = dict(img_scale=({w}, {h}), crop_size=({ch}, {cw}),
+                                 max_gt=8)
+data["test"]["pipeline"] = dict(img_scale=({w}, {h}))
+"""
+
+
+def _tree_bytes(root):
+    """{path under root: bytes} of every file under root."""
+    out = {}
+    for d, _, names in os.walk(root):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as f:
+                out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def phase_viper(smi, device="cuda", h=VIPER_H, w=VIPER_W,
+                val_frames=VIPER_VAL_FRAMES, tiny=False):
+    """VIPER from files to VPQ, through the port's entry points in this
+    process: a synthetic fixture in VIPER's format (tests/viper_fixture.py:
+    23 classes, things 13..22, instance and panoptic GT json, colour PNGs;
+    1 train video of 4 frames, 2 val videos of ``val_frames``) at h x w;
+    ``vps_torch.tools.train`` on the port's configs/viper/fusetrack.py
+    (R-50, f32, the loader in this process, 1 epoch of 4 steps);
+    ``tools.test_vpq`` at half-flow streamed (``--chunk 4 --streams 2``) and
+    frame by frame (``--chunk 1``), whose pickles and artifacts must be
+    byte-equal; VIPER's evaluator (``evaluate_panoptic_from_files``) on the
+    pickle's unified maps at windows {1, 5, 10, 15} (those that fit in a
+    video) and on the GT against itself, which must score 100 at each; and
+    ``tools.eval_ipq``. ``tiny``: the tiny model and pipelines at h x w, for
+    a CPU rehearsal. Returns the launch counts of the train and test runs by
+    path."""
+    import cv2
+    import torch
+    from vps_torch.config import Config
+    from vps_torch.eval.unified import get_unified_pan_result
+    from vps_torch.eval.viper import (VIPER_WINDOWS,
+                                      evaluate_panoptic_from_files,
+                                      viper_vpq_compute)
+    from vps_torch.tools import eval_ipq, test_vpq, train
+    from vps_torch.utils.checkpoint import latest_checkpoint
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    from viper_fixture import make_viper_fixture
+
+    on_card = torch.device(device).type == "cuda"
+    windows = tuple(nf for nf in VIPER_WINDOWS if nf <= val_frames)
+    n_val = VIPER_VAL_VIDEOS * val_frames
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+        t0 = time.perf_counter()
+        fix = make_viper_fixture(
+            os.path.join(tmp, "viper_vps"), train_frames=VIPER_TRAIN_FRAMES,
+            val_videos=VIPER_VAL_VIDEOS, val_frames=val_frames, h=h, w=w,
+            seed=SEED)
+        cfg_path = os.path.join(tmp, "cfg.py")
+        with open(cfg_path, "w") as f:
+            f.write(VIPER_CONFIG.format(
+                base=os.path.join(repo, "vps_torch", "configs", "viper",
+                                  "fusetrack.py"),
+                frames=val_frames, **{k: v for k, v in fix.items()
+                                      if k not in ("gt_json", "gt_dir")}))
+            if tiny:
+                f.write(VIPER_TINY.format(h=h, w=w, ch=h * 3 // 4,
+                                          cw=w * 3 // 4))
+        fixture_s = time.perf_counter() - t0
+        cfg = Config.fromfile(cfg_path)
+
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        runner = train.main([cfg_path, "--work_dir", os.path.join(tmp, "work"),
+                             "--device", device])
+        _sync(device)
+        train_s = time.perf_counter() - t0
+        train_launches = _counts()
+        train_peak = torch.cuda.max_memory_allocated() if on_card else 0
+        hist = runner.log_history
+        del runner
+        ckpt = latest_checkpoint(os.path.join(tmp, "work"))
+
+        common = [cfg_path, "--checkpoint", ckpt, "--preset", "half-flow",
+                  "--lambda", "1", "--labeled_fid", "0",
+                  "--nframes_per_video", str(val_frames),
+                  "--pan_im_json_file", fix["gt_json"], "--device", device]
+        runs = {}
+        for key, extra in (("streams", ["--chunk", str(VIPER_CHUNK),
+                                        "--streams", str(VIPER_STREAMS)]),
+                           ("frames", ["--chunk", "1"])):
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            summary = test_vpq.main(common + extra + [
+                "--out", os.path.join(tmp, key, "val.pkl")])
+            _sync(device)
+            runs[key] = (summary, _counts(),
+                         torch.cuda.max_memory_allocated() if on_card else 0,
+                         _tree_bytes(os.path.join(tmp, key)))
+        a, b = runs["streams"][3], runs["frames"][3]
+        unequal = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+        summary = runs["frames"][0]
+        with open(summary["pickle"], "rb") as f:
+            results = pickle.load(f)
+        with open(fix["gt_json"]) as f:
+            gt = json.load(f)
+        want_arts = sorted(im["file_name"] for im in gt["images"])
+        pan_dir = os.path.join(summary["output_dir"], "pan_pred")
+        written = sorted(n for n in os.listdir(pan_dir)
+                         if os.path.getsize(os.path.join(pan_dir, n)))
+
+        # VIPER's scoring: the pickle's unified maps, in the GT's order
+        t0 = time.perf_counter()
+        pcfg = cfg.model["panoptic"]
+        pans_2ch = get_unified_pan_result(
+            results["all_ssegs"], results["all_panos"],
+            results["all_pano_cls_inds"], results["all_pano_obj_ids"],
+            names=results["all_names"],
+            stuff_area_limit=cfg.test_cfg["panoptic"]["stuff_area_limit"],
+            num_stuff=pcfg["num_classes"] - pcfg["num_things_classes"])
+        vpq = evaluate_panoptic_from_files(
+            [pans_2ch[n] for n in sorted(pans_2ch)],
+            os.path.join(tmp, "viper_eval"), fix["gt_json"], fix["gt_dir"],
+            n_video=VIPER_VAL_VIDEOS, windows=windows)
+        eval_s = time.perf_counter() - t0
+        # the GT as its own submission
+        cats = {c["id"]: c for c in gt["categories"]}
+        gt_frames = [(ann, ann, pan, pan) for ann, pan in (
+            (ann, cv2.imread(os.path.join(fix["gt_dir"], im["file_name"]))
+             [..., ::-1]) for ann, im in zip(gt["annotations"], gt["images"]))]
+        videos = [gt_frames[i:i + val_frames]
+                  for i in range(0, len(gt_frames), val_frames)]
+        gt_pq = {nf: viper_vpq_compute(videos, cats, nf)[0]["All"]["pq"]
+                 for nf in windows}
+        ipq = eval_ipq.main(["--submit_dir", summary["output_dir"],
+                             "--truth_dir", fix["gt_dir"],
+                             "--pan_gt_json_file", fix["gt_json"]])
+
+    steps = [r["time"] for r in hist[1:]]
+    bad = [k for r in hist for k, v in r.items() if not np.isfinite(v)]
+    skips = int(hist[-1]["nonfinite_skips"])
+    print(f"viper: fixture {h}x{w} (1 train video x {VIPER_TRAIN_FRAMES} "
+          f"frames, {VIPER_VAL_VIDEOS} val videos x {val_frames}) and GT in "
+          f"{fixture_s:.1f}s; train {'tiny' if tiny else 'R-50'} f32 "
+          f"{len(hist)} steps in {train_s:.1f}s, first step "
+          f"{hist[0]['time']:.3f}s, {statistics.mean(steps):.4f} s/step over "
+          f"steps 2-{len(hist)} ({', '.join(f'{t:.4f}' for t in steps)}; the "
+          f"loader in this process), peak mem {train_peak / 2**30:.2f} GiB, "
+          f"nonfinite_skips {skips}, loss step 1 {hist[0]['loss']:.4f}, step "
+          f"{len(hist)} {hist[-1]['loss']:.4f}, launches {train_launches}; "
+          f"card: {smi}")
+    for key, (run, launches, peak, _) in runs.items():
+        how = (f"--chunk {VIPER_CHUNK} --streams {VIPER_STREAMS}"
+               if key == "streams" else "--chunk 1")
+        steady = run["steady_s"]
+        print(f"viper: test_vpq {how} half-flow {run['frames']} frames in "
+              f"{run['run_s']:.3f}s: {run['frames'] / run['run_s']:.3f} "
+              f"frames/s over the run (loading, predict, outputs to the host)"
+              + (f", {len(steady) / sum(steady):.3f} frames/s over the "
+                 f"{len(steady)} after each video's first (predict + outputs "
+                 f"to the host)" if steady else "")
+              + f", peak mem {peak / 2**30:.2f} GiB, launches {launches}, "
+              f"{len(run['artifacts'])} artifacts of {n_val} frames; card: "
+              f"{smi}")
+    print(f"viper: the two test_vpq runs: {len(a)} files, "
+          f"{len(a) - len(unequal)} byte-equal"
+          + (f", differ: {unequal[:6]}" if unequal else ""))
+    for nf in windows:
+        r = vpq[nf]
+        print(f"viper: window {nf:2d}: PQ all {100 * r['All']['pq']:.4f} "
+              f"things {100 * r['Things']['pq']:.4f} stuff "
+              f"{100 * r['Stuff']['pq']:.4f}; the GT against itself "
+              f"{100 * gt_pq[nf]:.4f}")
+    print(f"viper: VIPER's evaluator in {eval_s:.1f}s; eval_ipq pq_all "
+          f"{ipq[0]:.4f} pq_thing {ipq[1]:.4f} pq_stuff {ipq[2]:.4f}; PQ from "
+          f"random weights after {len(hist)} steps is a check of the chain, "
+          f"not a quality number")
+    if bad:
+        raise AssertionError(f"viper: non-finite {sorted(set(bad))}")
+    if skips != 0 or len(hist) != VIPER_TRAIN_FRAMES:
+        raise AssertionError(f"viper: {skips} steps skipped, {len(hist)} "
+                             f"logged, want {VIPER_TRAIN_FRAMES}")
+    for key, (run, _, _, _) in runs.items():
+        if sorted(run["artifacts"]) != want_arts or (
+                key == "frames" and written != want_arts):
+            raise AssertionError(f"viper {key}: artifacts "
+                                 f"{sorted(run['artifacts'])}, want one for "
+                                 f"each of {want_arts}")
+    if len(results["all_names"]) != n_val:
+        raise AssertionError(f"viper: the pickle has "
+                             f"{len(results['all_names'])} frames of {n_val}")
+    if unequal:
+        raise AssertionError(f"viper: the streamed and per-frame test_vpq "
+                             f"runs differ in {unequal[:6]}")
+    pqs = [100 * vpq[nf][k]["pq"] for nf in windows
+           for k in ("All", "Things", "Stuff")] + list(ipq)
+    if not all(0.0 <= v <= 100.0 for v in pqs):
+        raise AssertionError(f"viper: PQ outside [0, 100]: {pqs}")
+    if any(abs(gt_pq[nf] - 1.0) > 1e-9 for nf in windows):
+        raise AssertionError(f"viper: the GT scores {gt_pq} against itself, "
+                             f"not 100")
+    got = {"viper train": train_launches,
+           f"viper test_vpq --chunk {VIPER_CHUNK} --streams {VIPER_STREAMS}":
+           runs["streams"][1], "viper test_vpq --chunk 1": runs["frames"][1]}
+    # a streamed video runs whole chunks: its last is padded
+    padded = VIPER_VAL_VIDEOS * -(-val_frames // VIPER_CHUNK) * VIPER_CHUNK
+    want = {"viper train": _want(corr_f32=2 * len(hist),
+                                 corr_backward=len(hist)),
+            f"viper test_vpq --chunk {VIPER_CHUNK} --streams {VIPER_STREAMS}":
+            _want(corr_bf16_tc=2 * padded),
+            "viper test_vpq --chunk 1": _want(corr_bf16_tc=2 * n_val)}
+    if on_card and got != want:
+        raise AssertionError(f"viper: kernel launches {got}, want {want}")
+    return got
+
+
+def _points(det, run, modules=None, wrapped=()):
+    """Exact fingerprints of what one call of ``run(record)`` computes.
+    Points: the input ("<in") and output of each of ``modules`` (name,
+    module) pairs, the detector's top-level modules by default, one point
+    per call and tensor; the results of the functions of
+    ``vps_torch.models.detectors.panoptic`` named in ``wrapped``; and what
+    ``run`` passes to ``record(name, tensors)``. A module's points are
+    recorded when it returns, so a leaf's come before its parent's. A
+    fingerprint sums the raw bits of a tensor as int64 with position
+    weights: equal tensors give equal fingerprints, whatever the order of
+    the sum. Returns ({point: fingerprint} in the order recorded, run's
+    result)."""
     import torch
     import vps_torch.models.detectors.panoptic as panoptic
-    from vps_torch.train.step import make_loss_fn
 
     points = {}
     ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
@@ -1200,7 +1514,7 @@ def _fingerprints(det, batch, seed, modules=None):
 
     hooks = [m.register_forward_hook(hook(n))
              for n, m in (modules or det.named_children())]
-    wrapped = {f: getattr(panoptic, f) for f in ("rpn_proposals", "proposal_target")}
+    originals = {f: getattr(panoptic, f) for f in wrapped}
 
     def wrap(name, fn):
         def call(*args, **kwargs):
@@ -1209,19 +1523,36 @@ def _fingerprints(det, batch, seed, modules=None):
             return out
         return call
 
-    for name, fn in wrapped.items():
+    for name, fn in originals.items():
         setattr(panoptic, name, wrap(name, fn))
     try:
-        gen = torch.Generator(device=det.device).manual_seed(seed + 12345)
-        total, log_vars = make_loss_fn(det)(batch, gen)
+        result = run(record)
     finally:
         for h in hooks:
             h.remove()
-        for name, fn in wrapped.items():
+        for name, fn in originals.items():
             setattr(panoptic, name, fn)
-    for k, v in sorted(log_vars.items()):
-        record(k, v)
-    return points, total, {k: float(v.detach()) for k, v in log_vars.items()}
+    return points, result
+
+
+def _fingerprints(det, batch, seed, modules=None):
+    """One forward of the training loss with the Runner's first draws
+    (generator seeded as the Runner seeds it), through _points: every
+    module of ``modules`` (default: the top-level ones), the proposals, the
+    sampled RoIs and each loss term. Returns (points, total, loss terms)."""
+    import torch
+    from vps_torch.train.step import make_loss_fn
+
+    def run(record):
+        gen = torch.Generator(device=det.device).manual_seed(seed + 12345)
+        total, log_vars = make_loss_fn(det)(batch, gen)
+        for k, v in sorted(log_vars.items()):
+            record(k, v)
+        return total, {k: float(v.detach()) for k, v in log_vars.items()}
+
+    points, (total, losses) = _points(det, run, modules,
+                                      ("rpn_proposals", "proposal_target"))
+    return points, total, losses
 
 
 def _differ(modules=None, det=None, batch=None):
@@ -1282,6 +1613,74 @@ def _determinism_probe(det, batch):
     print(f"train determinism: ops flagged by use_deterministic_algorithms in "
           f"one forward + backward: {flagged}")
     return losses
+
+
+def _predict_points(det, frames, modules=None):
+    """_points of one predict_video over ``frames`` (the first a reset):
+    every module of ``modules`` (default: the top-level ones), the
+    proposals, and each output."""
+    from vps_torch.models.detectors import empty_track_state, predict_video
+
+    def run(record):
+        out, _ = predict_video(det, frames, [True] + [False] * (len(frames) - 1),
+                               empty_track_state(256, device=det.device),
+                               frames[0])
+        for k, v in sorted(out.items()):
+            record("out:" + k, v)
+
+    return _points(det, run, modules, ("rpn_proposals",))[0]
+
+
+def _predict_determinism(det, frames):
+    """Is predict_video the same twice in one process? Two runs over
+    ``frames`` compared point by point without the inference policy (cuDNN
+    free to choose); where they part, the same inside the first top-level
+    module to differ, every submodule hooked, naming the first op that
+    differs; then two runs under ``inference_policy``; last, the ops that
+    torch.use_deterministic_algorithms flags in one run. Returns the points
+    that differ under the policy."""
+    import warnings
+
+    import torch
+    from vps_torch.utils.numerics import inference_policy
+
+    def differ(modules=None):
+        a = _predict_points(det, frames, modules)
+        b = _predict_points(det, frames, modules)
+        return [k for k in a if a[k] != b.get(k)], len(a)
+
+    free, n = differ()
+    print(f"inference determinism: two predict_video runs over {len(frames)} "
+          f"frames, cuDNN free: {n - len(free)} of {n} points bitwise equal"
+          + (f", differ at {free[:8]}" if free else ""))
+    top = free[0].split("<")[0].split("#")[0] if free else None
+    if top in dict(det.named_children()):
+        mods = [(f"{top}.{k}".rstrip("."), m)
+                for k, m in det.get_submodule(top).named_modules()]
+        inner, m = differ(mods)
+        if inner:
+            name = inner[0].split("<")[0].split("#")[0]
+            kind = type(dict(det.named_modules()).get(name)).__name__
+            print(f"inference determinism: inside {top} ({m} points), the "
+                  f"first to differ: {inner[0]} ({kind}); then {inner[1:4]}")
+    with inference_policy():
+        still, n = differ()
+    print(f"inference determinism: under inference_policy (cuDNN "
+          f"deterministic): {n - len(still)} of {n} points bitwise equal"
+          + (f", differ at {still[:8]}" if still else ""))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            _predict_points(det, frames)
+            _sync(det.device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).split(" does not have")[0][:80]
+                      for w in caught if "deterministic" in str(w.message)})
+    print(f"inference determinism: ops flagged by use_deterministic_algorithms "
+          f"in one predict_video run: {flagged}")
+    return still
 
 
 def _proposal_divergence(own, ref, noise):
@@ -1702,6 +2101,7 @@ def main() -> int:
     phase_small_train()
     phase_small_train(sampler=dict(OHEM, num=32))
     paths.update(phase_dataset(smi, numerics))
+    paths.update(phase_viper(smi))
     # launches: the run of the kernel's own path; by path: every path's run
     own = {"corr_bf16_tc": "main", "corr_f32": "train",
            "corr_backward": "train", "dcw_fused": "window"}

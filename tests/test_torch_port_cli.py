@@ -1,6 +1,7 @@
 """The port's three entry points end to end on the CPU, in this process:
 ``vps_torch.tools.train`` (tiny model, 1 epoch of 2 steps, the validation
-hook after it) -> ``vps_torch.tools.test_vpq`` (1 video of 2 frames) ->
+hook after it) -> ``vps_torch.tools.test_vpq`` (1 video of 2 frames, its
+per-frame loop, ``--chunk 1``) ->
 ``vps_torch.tools.eval_vpq`` on the port's synthetic fixture at 64x128,
 with the eval-side GT built by the repo's prepare_data scripts. Checks the
 artifacts, that VPQ lies in [0, 100], and that test_vpq's per-frame outputs
@@ -106,7 +107,7 @@ def test_train_test_vpq_eval_vpq(tmp_path, tf32_on, capsys):
         str(cfg_path), "--checkpoint", ckpt, "--out", out, "--preset",
         "exact", "--lambda", "1", "--labeled_fid", "0",
         "--nframes_per_video", "2", "--pan_im_json_file", gt_json,
-        "--track_cap", "32", "--device", "cpu"])
+        "--track_cap", "32", "--chunk", "1", "--device", "cpu"])
     assert _tf32_off()
     unified = out.replace(".pkl", "_pans_unified")
     pngs = sorted(os.listdir(osp.join(unified, "pan_pred")))

@@ -5,8 +5,9 @@ tests/test_full_graph_parity.py asserts. Plus the weight bridge round trip,
 predict_video's reset semantics, and the static no-JAX-import check.
 
 Cost: JAX variables come from ``convert_detector`` and seeded TinyFlow
-convs (no init and no trace of the detector), and one jitted ``predict`` is
-reused for both frames in a module-scoped fixture.
+convs (no init and no trace of the detector), one build_sd serves the
+file's tests, and one jitted ``predict`` is reused for both frames in a
+module-scoped fixture.
 """
 
 import ast
@@ -84,11 +85,22 @@ def _weights(params_conv, stats_conv):
 
 
 @pytest.fixture(scope="module")
-def clip():
+def weights():
+    """The file's one build_sd (seed 3) and its conversion: (state_dict,
+    params, batch_stats, keys used, the rng's state after the draws)."""
+    rng = np.random.RandomState(3)
+    sd = build_sd(rng)
+    params_conv, stats_conv, used = convert_detector(sd, depth=18)
+    return sd, params_conv, stats_conv, used, rng.get_state()
+
+
+@pytest.fixture(scope="module")
+def clip(weights):
     """Both stacks on one clip; returns (JAX per-frame outputs, port stacked
     outputs)."""
-    rng = np.random.RandomState(3)
-    params_conv, stats_conv, _ = convert_detector(build_sd(rng), depth=18)
+    _, params_conv, stats_conv, _, rng_state = weights
+    rng = np.random.RandomState()
+    rng.set_state(rng_state)
     cfg, tcfg = _cfgs(jzoo)
     det = JPanopticFuseTrack(train_cfg=jzoo.fusetrack_train_cfg(),
                              test_cfg=tcfg, **cfg)
@@ -146,11 +158,10 @@ def assert_frame_matches(ours, p):
     assert pan >= 0.999, f"panoptic agreement {pan}"
 
 
-def test_weight_bridge_round_trip():
+def test_weight_bridge_round_trip(weights):
     """build_sd -> convert_detector -> state_dict_from_jax gives back every
     key of build_sd, bit for bit, and loads strictly into the port."""
-    sd = build_sd(np.random.RandomState(0))
-    params, stats, used = convert_detector(sd, depth=18)
+    sd, params, stats, used, _ = weights
     assert used == set(sd)
     back = state_dict_from_jax(params, stats)
     assert set(back) == set(sd)
@@ -164,14 +175,13 @@ def test_weight_bridge_round_trip():
     assert all(k.startswith("flownet2.") for k in missing)
 
 
-def test_predict_video_resets():
+def test_predict_video_resets(weights):
     """A reset frame clears the track state, is its own reference and
     recomputes the feature carry: the clip [a, b(reset)] gives b the same
     outputs as a fresh clip [b(reset)]."""
     cfg, tcfg = _cfgs(zoo)
     port = PanopticFuseTrack(test_cfg=tcfg, device="cpu", **cfg)
-    sd = state_dict_from_jax(*convert_detector(build_sd(
-        np.random.RandomState(1)), depth=18)[:2])
+    sd = state_dict_from_jax(*weights[1:3])
     torch.manual_seed(0)
     for name in ("c1", "c2", "pred"):
         conv = getattr(port.flownet2, name)
@@ -195,7 +205,7 @@ def test_predict_video_resets():
 def test_port_imports_no_jax():
     """vps_torch and chip_smoke.py import nothing of jax, flax, optax or
     vps_tpu (static check over every module's import statements), the
-    training, data, eval, tools and config modules included."""
+    training, data, eval, tools, utils and config modules included."""
     banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
@@ -208,7 +218,9 @@ def test_port_imports_no_jax():
         "eval/pq", "eval/vpq", "eval/unified", "train/eval_hook",
         "tools/train", "tools/test_vpq", "tools/eval_vpq",
         "configs/cityscapes/fusetrack", "configs/cityscapes/fusetrack_fast",
-        "configs/cityscapes/fuse", "configs/cityscapes/track")}
+        "configs/cityscapes/fuse", "configs/cityscapes/track",
+        "configs/viper/fusetrack", "eval/viper", "tools/eval_ipq",
+        "utils/visualize", "utils/flow")}
     assert required <= names, required - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -81,14 +81,16 @@ def _fill(tree, rng):
     return out
 
 
-def _bridge(jmod, prefix, port, *args, method=None, seed=0):
+def _bridge(jmod, prefix, port, *args, method=None, seed=0, variables=None):
     """eval_shape-init `jmod`, fill, load the same values into `port` (which
     may be built on the meta device: the values are assigned). Returns the
-    flax variables."""
-    shapes = jax.eval_shape(
-        lambda: jmod.init(jax.random.PRNGKey(0), *args, method=method))
-    rng = np.random.default_rng(seed)
-    variables = {k: _fill(v, rng) for k, v in shapes.items()}
+    flax variables. ``variables``: a module's of the same parameter tree,
+    filled already (no init trace)."""
+    if variables is None:
+        shapes = jax.eval_shape(
+            lambda: jmod.init(jax.random.PRNGKey(0), *args, method=method))
+        rng = np.random.default_rng(seed)
+        variables = {k: _fill(v, rng) for k, v in shapes.items()}
     sd = state_dict_from_jax({prefix: variables["params"]},
                              {prefix: variables.get("batch_stats", {})})
     port.load_state_dict({k[len(prefix) + 1:]: v for k, v in sd.items()},
@@ -181,13 +183,17 @@ def test_bfp_tcea():
         _close(_nhwc(g), w)
 
 
+_UPSNET_VARIABLES = {}  # (cin, cout, dcn_window) -> filled flax variables
+
+
 @pytest.mark.parametrize("head_stride,dcn_window", [
     pytest.param(4, None, id="4"), pytest.param(8, None, id="8"),
     pytest.param(4, 4, id="4-window4")])
 def test_upsnet_fpn(head_stride, dcn_window):
     """``dcn_window`` runs every level through the clamped DCN, at narrow
     widths (64 -> 32 channels; GroupNorm(32) still has two and one
-    channels a group)."""
+    channels a group). The head stride changes no parameter, so the
+    strides share one filled tree (the values a fill of each would give)."""
     cin, cout = (256, 128) if dcn_window is None else (64, 32)
     rng = np.random.RandomState(4)
     xs = [rng.randn(1, 16 >> i, 32 >> i, cin).astype(np.float32)
@@ -196,7 +202,10 @@ def test_upsnet_fpn(head_stride, dcn_window):
               head_stride=head_stride, dcn_window=dcn_window)
     jm = JUPSNetFPN(**kw)
     pm = UPSNetFPN(device="cpu", **kw)
-    v = _bridge(jm, "panopticFPN", pm, [jnp.asarray(x) for x in xs])
+    key = (cin, cout, dcn_window)
+    v = _UPSNET_VARIABLES[key] = _bridge(
+        jm, "panopticFPN", pm, [jnp.asarray(x) for x in xs],
+        variables=_UPSNET_VARIABLES.get(key))
     want_out, want_score = jax.jit(jm.apply)(v, [jnp.asarray(x) for x in xs])
     with torch.no_grad():
         out, score = pm([T(x).permute(0, 3, 1, 2) for x in xs])

@@ -77,10 +77,11 @@ def _dotted(node):
 
 
 def test_only_the_policy_sets_flags():
-    """Static check over vps_torch and chip_smoke.py: the one function that
-    assigns a ``torch.backends`` flag is ``utils/numerics.py``'s
-    ``f32_policy``, and no module calls it (or any ``torch.set_*``) at
-    import time, so importing the package changes no global flag."""
+    """Static check over vps_torch and chip_smoke.py: the only functions
+    that assign a ``torch.backends`` flag are ``utils/numerics.py``'s
+    policies, ``f32_policy`` and ``inference_policy``, and no module calls
+    one (or any ``torch.set_*``) at import time, so importing the package
+    changes no global flag."""
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     setters = []
     for path in files:
@@ -101,8 +102,10 @@ def test_only_the_policy_sets_flags():
             for node in ast.walk(stmt):
                 if isinstance(node, ast.Call):
                     name = _dotted(node.func)
-                    assert not name.endswith("f32_policy") and not (
+                    assert not name.endswith(("f32_policy",
+                                              "inference_policy")) and not (
                         name.startswith("torch.set_")), (path, name)
     # each assignment is seen from the module and from its function
     assert set(setters) == {("vps_torch/utils/numerics.py", None),
-                            ("vps_torch/utils/numerics.py", "f32_policy")}
+                            ("vps_torch/utils/numerics.py", "f32_policy"),
+                            ("vps_torch/utils/numerics.py", "inference_policy")}

@@ -37,6 +37,17 @@ from vps_torch import ops
 T = torch.from_numpy
 
 
+@functools.lru_cache(maxsize=None)
+def _jit(fn, *static):
+    """One jitted reference per function and static arguments, shared by the
+    file's tests: a compile is cheaper than op-by-op dispatch."""
+    return jax.jit(fn, static_argnums=static)
+
+
+# one compile for every seed and threshold (the threshold is traced)
+_jnms = jax.jit(lambda b, s, thr, v: jax_nms(b, s, thr, valid=v))
+
+
 @pytest.mark.parametrize("shape,md,s2", [
     ((2, 12, 17, 32), 4, 1),   # LiteFlowNetCorr geometry, ragged width
     ((1, 24, 30, 16), 20, 2),  # FlowNetC geometry (441 channels)
@@ -45,7 +56,8 @@ def test_correlation_f32(shape, md, s2):
     rng = np.random.RandomState(0)
     f1 = rng.randn(*shape).astype(np.float32)
     f2 = rng.randn(*shape).astype(np.float32)
-    want = np.asarray(jax_correlation(jnp.asarray(f1), jnp.asarray(f2), md, s2))
+    want = np.asarray(_jit(jax_correlation, 2, 3)(jnp.asarray(f1),
+                                                  jnp.asarray(f2), md, s2))
     got = ops.correlation(T(f1), T(f2), md, s2).numpy()
     steps = 2 * (md // s2) + 1
     assert got.shape == shape[:3] + (steps * steps,)
@@ -61,9 +73,9 @@ def test_correlation_bf16():
     shape = (1, 10, 13, 64)
     f1 = rng.randn(*shape).astype(np.float32)
     f2 = rng.randn(*shape).astype(np.float32)
-    want = np.asarray(jax_correlation(jnp.asarray(f1, jnp.bfloat16),
-                                      jnp.asarray(f2, jnp.bfloat16), 4, 1)
-                      .astype(jnp.float32))
+    want = np.asarray(_jit(jax_correlation, 2, 3)(
+        jnp.asarray(f1, jnp.bfloat16), jnp.asarray(f2, jnp.bfloat16), 4, 1)
+        .astype(jnp.float32))
     got = ops.correlation(T(f1).bfloat16(), T(f2).bfloat16(), 4, 1)
     assert got.dtype == torch.bfloat16
     atol = 2.0 ** -8 * np.abs(f1).mean() * np.abs(f2).mean()
@@ -96,8 +108,8 @@ def test_flow_warp(sampling):
     rng = np.random.RandomState(2)
     x = rng.randn(2, 9, 14, 24).astype(np.float32)
     flow = rng.uniform(-3, 3, (2, 9, 14, 2)).astype(np.float32)
-    want = np.asarray(jax_flow_warp(jnp.asarray(x), jnp.asarray(flow),
-                                    sampling=sampling))
+    want = np.asarray(jax.jit(functools.partial(
+        jax_flow_warp, sampling=sampling))(jnp.asarray(x), jnp.asarray(flow)))
     got = ops.flow_warp(T(x), T(flow), sampling=sampling).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
@@ -106,11 +118,13 @@ def test_resample2d_and_channel_norm():
     rng = np.random.RandomState(3)
     x = rng.randn(1, 11, 13, 3).astype(np.float32)
     flow = rng.uniform(-4, 4, (1, 11, 13, 2)).astype(np.float32)
-    want = np.asarray(jax_resample2d(jnp.asarray(x), jnp.asarray(flow)))
+    want = np.asarray(jax.jit(jax_resample2d)(jnp.asarray(x),
+                                              jnp.asarray(flow)))
     got = ops.resample2d(T(x), T(flow)).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
     np.testing.assert_allclose(ops.channel_norm(T(x)).numpy(),
-                               np.asarray(jax_channel_norm(jnp.asarray(x))),
+                               np.asarray(jax.jit(jax_channel_norm)(
+                                   jnp.asarray(x))),
                                rtol=1e-6, atol=1e-6)
 
 
@@ -185,8 +199,8 @@ def test_deform_conv2d_windowed_f32(scale):
     +-4. f32 atol 1e-5 (sum order)."""
     x, off, weight = _windowed_inputs(np.random.RandomState(12), (2, 10, 13, 8),
                                       6, scale)
-    want = jax_deform_conv2d_windowed(jnp.asarray(x), jnp.asarray(off),
-                                      jnp.asarray(_hwio(weight)), 1, 4)
+    want = _jit(jax_deform_conv2d_windowed, 3, 4)(
+        jnp.asarray(x), jnp.asarray(off), jnp.asarray(_hwio(weight)), 1, 4)
     got = ops.deform_conv2d_windowed(T(x), T(off), T(weight), 1, 4)
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
@@ -199,7 +213,7 @@ def test_deform_conv2d_windowed_bf16():
     max |diff| <= 2^-8 * max |ref|."""
     x, off, weight = _windowed_inputs(np.random.RandomState(13), (1, 12, 16, 32),
                                       16, 1.5)
-    want = np.asarray(jax_deform_conv2d_windowed(
+    want = np.asarray(_jit(jax_deform_conv2d_windowed, 3, 4)(
         jnp.asarray(x, jnp.bfloat16), jnp.asarray(off),
         jnp.asarray(_hwio(weight), jnp.bfloat16), 1, 4).astype(jnp.float32))
     got = ops.deform_conv2d_windowed(T(x).bfloat16(), T(off),
@@ -312,8 +326,8 @@ def test_nms_identical_keep_sets(seed):
     scores = rng.choice(np.linspace(0.1, 0.9, 7), n).astype(np.float32)  # ties
     valid = rng.rand(n) > 0.2
     for thr in (0.3, 0.5, 0.7):
-        want = np.asarray(jax_nms(jnp.asarray(boxes), jnp.asarray(scores), thr,
-                                  valid=jnp.asarray(valid)))
+        want = np.asarray(_jnms(jnp.asarray(boxes), jnp.asarray(scores), thr,
+                                jnp.asarray(valid)))
         got = ops.nms(T(boxes), T(scores), thr, valid=T(valid)).numpy()
         np.testing.assert_array_equal(got, want)
         assert not got[~valid].any()

@@ -10,6 +10,8 @@ one-test file of its own, ``test_torch_port_trainable.py`` (pytest-xdist's
 loadfile scheduler queues a one-test file after the files with several).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import jax
@@ -178,8 +180,9 @@ def test_max_iou_assign():
     ours = max_iou_assign(T(boxes), T(gts), gt_labels=T(labels),
                           gt_pids=T(pids), bbox_valid=T(bvalid),
                           gt_valid=T(gvalid), **kw)
-    ref = j_max_iou_assign(boxes, gts, gt_labels=labels, gt_pids=pids,
-                           bbox_valid=bvalid, gt_valid=gvalid, **kw)
+    ref = jax.jit(functools.partial(j_max_iou_assign, **kw))(
+        boxes, gts, gt_labels=labels, gt_pids=pids, bbox_valid=bvalid,
+        gt_valid=gvalid)
     assert (_np(ours.assigned_gt_inds) > 0).sum() > 5
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
@@ -193,7 +196,8 @@ def test_sample_by_priority():
     pp = np.round(rng.rand(300), 1).astype(np.float32)  # many ties
     pn = rng.rand(300).astype(np.float32)
     ours = _sample_by_priority(T(pp), T(pn), T(gi > 0), T(gi == 0), 128, 32)
-    ref = j_sample_by_priority(pp, pn, gi > 0, gi == 0, 128, 32)
+    ref = jax.jit(j_sample_by_priority, static_argnums=(4, 5))(
+        pp, pn, gi > 0, gi == 0, 128, 32)
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
 
@@ -373,6 +377,7 @@ def test_optimizer_matches_optax_chain():
         jparams, joptim.build_lr_schedule(0.01, 5, 12, warmup_iters=3),
         frozen_stages=1)
     jstate = tx.init(jparams)
+    update = jax.jit(tx.update)
     for step, scale in enumerate((1.0, float("nan"), 100.0)):
         grads = {n: rng.randn(*p.shape).astype(np.float32) * scale
                  for n, p in mod.named_parameters() if p.requires_grad}
@@ -387,7 +392,7 @@ def test_optimizer_matches_optax_chain():
                 node[leaf] = jnp.asarray(grads[n].copy())
         applied = opt.step()
         assert applied == (step != 1)
-        updates, jstate = tx.update(jgrads, jstate, jparams)
+        updates, jstate = update(jgrads, jstate, jparams)
         jparams = optax.apply_updates(jparams, updates)
         back, _ = _jax_tree(mod)
         jax.tree.map(lambda a, b: np.testing.assert_allclose(

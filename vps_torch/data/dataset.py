@@ -1,9 +1,11 @@
-"""Cityscapes-VPS video dataset (the port's copy of the JAX package's
-``data/dataset.py``; the Viper, Coco and Cityscapes-image datasets are not
-ported): COCO-style json with per-instance ``inst_id``; training pairs each
-frame with a random +-1-id reference frame (+-5 real frames in
-Cityscapes-VPS); test enumerates all frames with ref = previous frame,
-resetting every ``nframes_span_test``.
+"""The video datasets (the port's copy of the JAX package's
+``data/dataset.py``): Cityscapes-VPS and VIPER; the image-level Coco and
+Cityscapes datasets are not ported. COCO-style json with per-instance
+``inst_id``; training pairs each frame with a random reference frame at one
+of ``offsets`` ids away (+-1 id is +-5 real frames in Cityscapes-VPS); test
+enumerates all frames with ref = previous frame, resetting every
+``nframes_span_test``. ``build_dataset`` dispatches on ``type`` through
+``DATASETS``.
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ class CityscapesVPSDataset:
         for info in self.img_infos:
             info["filename"] = info["file_name"]
         self.cat2label = {c: i + 1 for i, c in enumerate(self.coco.cat_ids)}
+        if type(self).CLASSES is None:
+            # VIPER: the class names are the json's categories, in cat_id
+            # order (= label order)
+            self.CLASSES = tuple(
+                self.coco.cats[c]["name"] for c in self.coco.cat_ids
+            )
         if ref_ann_file is not None and ref_ann_file != ann_file:
             self.ref_coco = CocoIndex(ref_ann_file)
         else:
@@ -235,6 +243,19 @@ class CityscapesVPSDataset:
         return variants, meta
 
 
+class ViperDataset(CityscapesVPSDataset):
+    """VIPER (day split): the same COCO-video machinery; the class names
+    come from the json's categories (10 things; 23 semantic classes)."""
+
+    CLASSES = None  # from the json's categories
+
+
+# build_dataset's types; mmdet's image-level CocoDataset and
+# CityscapesDataset are not ported
+DATASETS = {cls.__name__: cls for cls in (CityscapesVPSDataset, ViperDataset)}
+UNPORTED = ("CocoDataset", "CityscapesDataset")
+
+
 class ConcatDataset:
     """Concatenation wrapper (mmdet's ConcatDataset): the index space is
     the concatenation of the parts."""
@@ -279,6 +300,8 @@ def build_dataset(cfg: Dict[str, Any]):
     # fixed Train/TestPipeline replaces them)
     if not (callable(cfg.get("pipeline")) or isinstance(cfg.get("pipeline"), dict)):
         cfg.pop("pipeline", None)
-    if t != "CityscapesVPSDataset":
-        raise ValueError(f"dataset type {t!r} is not ported")
-    return CityscapesVPSDataset(**cfg)
+    if t not in DATASETS:
+        raise ValueError(
+            f"dataset type {t!r} is not ported" if t in UNPORTED else
+            f"unknown dataset type {t!r}; the port has {sorted(DATASETS)}")
+    return DATASETS[t](**cfg)

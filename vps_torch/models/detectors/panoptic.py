@@ -1,7 +1,7 @@
 """The VPSNet detectors (port of vps_tpu/models/detectors/panoptic.py:
-PanopticFuseTrack with its loss, _panoptic_train_loss, predict, predict_aug
-and predict_video; PanopticFuse, without the track head; PanopticTrack,
-without the flow and the fuse neck).
+PanopticFuseTrack with its loss, _panoptic_train_loss, predict, predict_aug,
+predict_video and run_video_streams; PanopticFuse, without the track head;
+PanopticTrack, without the flow and the fuse neck).
 
 Same per-frame contract as the JAX detector: ``predict`` takes a (1, H, W, 3)
 normalised float frame, its reference frame and the TrackState, and returns
@@ -24,7 +24,10 @@ computed.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -719,8 +722,9 @@ def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
     the previous chunk; prev_feats=None computes it from prev_img. Returns
     (outputs stacked over frames without the fpn_feats carry,
     (state, feats, last_img)). A detector without a fuse neck reads no
-    reference pyramid: none is computed, and the carry's feats are None."""
-    if prev_feats is None and det.uses_ref_feats:
+    reference pyramid: none is computed, and the carry's feats are None; nor
+    is prev_img's when the clip starts with a reset, which never reads it."""
+    if prev_feats is None and det.uses_ref_feats and not bool(resets[0]):
         prev_feats = det.extract_feat(prev_img)
     state, ref_feats, prev = track_state, prev_feats, prev_img
     frames = []
@@ -741,6 +745,147 @@ def predict_video(det: PanopticFuseTrack, imgs, resets, track_state: TrackState,
         frames.append(outputs)
     stacked = {k: torch.stack([f[k] for f in frames]) for k in frames[0]}
     return stacked, (state, ref_feats, prev)
+
+
+def _own_device(det: PanopticFuseTrack) -> torch.device:
+    """``det``'s device, a card named by its index ("cuda" is the current
+    card)."""
+    if det.device.type == "cuda" and det.device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return det.device
+
+
+def _replica(det: PanopticFuseTrack, device: torch.device) -> PanopticFuseTrack:
+    """``det`` itself on its own device, else a copy of it on ``device``."""
+    if device == _own_device(det):
+        return det
+    rep = copy.deepcopy(det).to(device)
+    rep.device = device
+    return rep
+
+
+def _local_devices(det: PanopticFuseTrack):
+    """Every card when ``det`` is on one (its own first), else its device."""
+    own = _own_device(det)
+    if own.type != "cuda":
+        return [own]
+    return [own] + [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count()) if i != own.index]
+
+
+class _VideoStream:
+    """One stream of ``run_video_streams``: its detector, its CUDA stream
+    (None on the CPU), the carry between its chunks, the frames of the chunk
+    it is filling, its chunks sent and not yet recorded, and one worker
+    thread that runs its chunks in order."""
+
+    def __init__(self, det, device, chunk, track_cap, img_shape_withoutpad):
+        self.det, self.device, self.chunk = det, device, chunk
+        self.img_shape_withoutpad = img_shape_withoutpad
+        self.cuda = (torch.cuda.Stream(device) if device.type == "cuda"
+                     else None)
+        self.track_cap = track_cap
+        self.state = self.prev_img = self.prev_feats = None
+        self.imgs, self.resets, self.metas = [], [], []
+        self.pending = []
+        self.worker = ThreadPoolExecutor(1)
+
+    def _run(self, imgs, resets):
+        """One chunk on the worker thread; its outputs on the host. Every
+        tensor of the stream's carry is made on its CUDA stream, so the
+        caching allocator never hands its memory to another stream while
+        this one may still read it."""
+        ctx = (torch.cuda.stream(self.cuda) if self.cuda is not None
+               else contextlib.nullcontext())
+        with ctx:
+            imgs = torch.as_tensor(imgs, device=self.device)
+            if self.state is None:
+                self.state = empty_track_state(self.track_cap,
+                                               device=self.device)
+                self.prev_img = imgs[0]
+            outputs, (self.state, self.prev_feats, self.prev_img) = \
+                predict_video(self.det, imgs, resets, self.state,
+                              self.prev_img, prev_feats=self.prev_feats,
+                              img_shape_withoutpad=self.img_shape_withoutpad)
+            return {k: v.cpu().numpy() for k, v in outputs.items()}
+
+    def flush(self):
+        """Send the filled chunk to the worker, padded to ``chunk`` frames
+        with its last frame (a pad only ever ends a video: the stream's next
+        frame is a reset)."""
+        if not self.imgs:
+            return
+        n_real = len(self.imgs)
+        imgs = self.imgs + [self.imgs[-1]] * (self.chunk - n_real)
+        resets = self.resets + [False] * (self.chunk - n_real)
+        self.pending.append((self.worker.submit(self._run, np.stack(imgs),
+                                                resets), self.metas))
+        self.imgs, self.resets, self.metas = [], [], []
+
+    def drain(self, record):
+        """Record the real frames of every chunk sent, in order."""
+        for job, metas in self.pending:
+            outputs = job.result()
+            for t, meta in enumerate(metas):
+                record({k: v[t] for k, v in outputs.items()}, meta)
+        self.pending = []
+
+
+def run_video_streams(det: PanopticFuseTrack, frames, chunk: int, record,
+                      img_shape_withoutpad: Optional[Tuple[int, int]] = None,
+                      track_cap: int = 256, n_streams: Optional[int] = None):
+    """Round-robin whole videos over parallel streams (JAX's
+    ``run_video_streams``, the core of ``test_vpq --chunk/--streams``).
+
+    ``frames`` yields (img (1, H, W, 3) normalised numpy frame, is_first,
+    meta). Videos go in turn to ``n_streams`` streams (default: one per
+    device), spread over every card when ``det`` is on one (else they share
+    ``det``'s device); a card other than ``det``'s gets a copy of it, and
+    each stream has its own CUDA stream and a worker thread, so the streams'
+    chunks can overlap. A stream runs ``chunk`` frames per
+    ``predict_video`` call; a chunk is padded with its last frame and the
+    padded outputs are dropped. As a pad only ever ends a video and a video
+    starts with a reset, every frame's outputs equal the per-frame loop's
+    (``make_frame_step``). ``record(outputs, meta)`` gets each real frame's
+    outputs as numpy arrays (without the fpn_feats carry), on this thread,
+    stream by stream and chunk by chunk within a stream: grouped by chunk and
+    interleaved across streams, as JAX's, so a consumer keys them by meta."""
+    devices = _local_devices(det)
+    n_streams = n_streams or len(devices)
+    replicas = {}
+    streams = []
+    for i in range(n_streams):
+        dev = devices[i % len(devices)]
+        if dev not in replicas:
+            replicas[dev] = _replica(det, dev)
+        streams.append(_VideoStream(replicas[dev], dev, chunk, track_cap,
+                                    img_shape_withoutpad))
+    for dev in replicas:  # the weights in place before another stream reads
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    try:
+        cur, nvid = 0, 0
+        for img, is_first, meta in frames:
+            if is_first:
+                streams[cur].flush()
+                cur = nvid % n_streams
+                nvid += 1
+            st = streams[cur]
+            st.imgs.append(np.asarray(img))
+            st.resets.append(bool(is_first))
+            st.metas.append(meta)
+            if len(st.imgs) == chunk:
+                st.flush()
+            if sum(len(s.pending) for s in streams) > 2 * n_streams:
+                for s in streams:
+                    s.drain(record)
+        for st in streams:
+            st.flush()
+        for st in streams:
+            st.drain(record)
+    finally:
+        for st in streams:
+            st.worker.shutdown(wait=True)
 
 
 def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,

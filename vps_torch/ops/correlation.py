@@ -137,8 +137,9 @@ def _forward(f1, f2, max_displacement, stride2):
             max_displacement, stride2, int(bf16),
             cuda_build.stream_ptr(f1.device))
     cuda_build.check(lib, rc, "correlation kernel launch")
-    correlation.launches += 1
-    correlation.route_launches["corr_bf16_tc" if bf16 else "corr_f32"] += 1
+    with cuda_build.COUNT_LOCK:
+        correlation.launches += 1
+        correlation.route_launches["corr_bf16_tc" if bf16 else "corr_f32"] += 1
     return out
 
 
@@ -200,7 +201,8 @@ def correlation_backward(g, f1, f2, max_displacement: int, stride2: int = 1):
             gf2.data_ptr(), b, h, w, c, max_displacement, stride2,
             int(f1.dtype == torch.bfloat16), cuda_build.stream_ptr(f1.device))
     cuda_build.check(lib, rc, "correlation backward kernel launch")
-    correlation_backward.launches += 1
+    with cuda_build.COUNT_LOCK:
+        correlation_backward.launches += 1
     return gf1, gf2
 
 

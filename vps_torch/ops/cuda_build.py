@@ -27,6 +27,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+# held by the kernel wrappers while they count a launch: run_video_streams
+# launches from several threads at once
+COUNT_LOCK = threading.Lock()
 # seconds spent in nvcc per source, for reporting (0.0 when cached)
 build_seconds: Dict[str, float] = {}
 

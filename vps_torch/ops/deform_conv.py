@@ -224,7 +224,8 @@ def windowed_fused(x, offset, weight, padding: int = 1, window: int = 4):
             kw, padding, float(window),
             cuda_build.stream_ptr(x.device))
     cuda_build.check(lib, rc, "fused windowed deformable conv kernel launch")
-    deform_conv2d_windowed.launches += 1
+    with cuda_build.COUNT_LOCK:
+        deform_conv2d_windowed.launches += 1
     return out
 
 
@@ -263,7 +264,8 @@ def windowed_mix(y, offset, kernel_size, padding: int = 1, window: int = 4):
             y.data_ptr(), offset.data_ptr(), out.data_ptr(), b, h, w, cout,
             kh, kw, padding, float(window), cuda_build.stream_ptr(y.device))
     cuda_build.check(lib, rc, "windowed deformable conv kernel launch")
-    deform_conv2d_windowed.launches += 1
+    with cuda_build.COUNT_LOCK:
+        deform_conv2d_windowed.launches += 1
     return out
 
 
