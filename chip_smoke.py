@@ -81,6 +81,23 @@ Phases, each printing its own line of numbers:
                  without an artifact, the two test_vpq runs not byte-equal,
                  PQ outside [0, 100], the GT not scoring 100 against itself
                  at every window, or a kernel that did not launch.
+  7. zoo      -- the R-CNN zoo's inference at full width, written from the
+                 public mmdetection v1.0 configs (R-50 FPN, 81 classes,
+                 their test_cfg word for word, seeded random weights): one
+                 seeded 800x1333 image padded to 800x1344, 1 warm-up and 5
+                 timed images each, for Mask R-CNN ("mask_rcnn"), Cascade
+                 Mask R-CNN ("cascade_mask_rcnn"), HTC ("htc") and the
+                 other six types ("zoo rpn", "zoo fast_rcnn" on the RPN's
+                 proposals, "zoo faster_rcnn", "zoo double_head", "zoo
+                 ms_rcnn" on a caffe-style R-50, "zoo grid_rcnn"); prints
+                 images/s, peak memory, valid detections, host syncs an
+                 image (and the named ranges of one profiled image), the
+                 masks pasted at 800x1333 and binarised at mask_thr_binary,
+                 and the config keys the port has no counterpart for; fails
+                 on no valid detection, a non-finite output or a box
+                 outside the image. Then each of the nine types and the HTC
+                 alias at tests/test_two_stage.py's tiny shapes on the card
+                 against the port's CPU path ("small zoo").
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
@@ -2069,6 +2086,503 @@ def phase_small_aug(device="cuda"):
                  "0.5) 64x128", got, want)
 
 
+# ---------------------------------------------------------------------------
+# The R-CNN zoo's inference at full width (mmdetection v1.0's public configs)
+# ---------------------------------------------------------------------------
+
+ZOO_HW = (800, 1333)  # mmdet v1's test scale (1333, 800)
+ZOO_PAD = (800, 1344)  # padded by size divisor 32
+ZOO_IMAGES = 5  # timed, after 1 warm-up
+# the "zoo" phase's types, in order: Fast R-CNN takes the RPN's proposals
+ZOO_OTHERS = ("rpn", "fast_rcnn", "faster_rcnn", "double_head", "ms_rcnn",
+              "grid_rcnn")
+
+
+def _mmdet_trunk(style="pytorch"):
+    """The R-50-FPN trunk, RPN head and box RoI extractor of the mmdetection
+    v1.0 configs (configs/*_r50_fpn_1x.py)."""
+    backbone = dict(type="ResNet", depth=50, num_stages=4,
+                    out_indices=(0, 1, 2, 3), frozen_stages=1, style=style)
+    if style == "caffe":  # ms_rcnn/ms_rcnn_r50_caffe_fpn_1x.py
+        backbone["norm_cfg"] = dict(type="BN", requires_grad=False)
+    return dict(
+        pretrained=("open-mmlab://resnet50_caffe" if style == "caffe"
+                    else "torchvision://resnet50"),
+        backbone=backbone,
+        neck=dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                  out_channels=256, num_outs=5),
+        rpn_head=dict(
+            type="RPNHead", in_channels=256, feat_channels=256,
+            anchor_scales=[8], anchor_ratios=[0.5, 1.0, 2.0],
+            anchor_strides=[4, 8, 16, 32, 64], target_means=[.0, .0, .0, .0],
+            target_stds=[1.0, 1.0, 1.0, 1.0],
+            loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=True,
+                          loss_weight=1.0),
+            loss_bbox=dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                           loss_weight=1.0)),
+        bbox_roi_extractor=dict(
+            type="SingleRoIExtractor",
+            roi_layer=dict(type="RoIAlign", out_size=7, sample_num=2),
+            out_channels=256, featmap_strides=[4, 8, 16, 32]))
+
+
+def _mmdet_bbox_head(stds=(0.1, 0.1, 0.2, 0.2), agnostic=False, **over):
+    return dict(dict(
+        type="SharedFCBBoxHead", num_fcs=2, in_channels=256,
+        fc_out_channels=1024, roi_feat_size=7, num_classes=81,
+        target_means=[0., 0., 0., 0.], target_stds=list(stds),
+        reg_class_agnostic=agnostic,
+        loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=False,
+                      loss_weight=1.0),
+        loss_bbox=dict(type="SmoothL1Loss", beta=1.0, loss_weight=1.0)),
+        **over)
+
+
+_MASK_ROI = dict(type="SingleRoIExtractor",
+                 roi_layer=dict(type="RoIAlign", out_size=14, sample_num=2),
+                 out_channels=256, featmap_strides=[4, 8, 16, 32])
+_MASK_HEAD = dict(type="FCNMaskHead", num_convs=4, in_channels=256,
+                  conv_out_channels=256, num_classes=81,
+                  loss_mask=dict(type="CrossEntropyLoss", use_mask=True,
+                                 loss_weight=1.0))
+_RPN_TEST = dict(nms_across_levels=False, nms_pre=1000, nms_post=1000,
+                 max_num=1000, nms_thr=0.7, min_bbox_size=0)
+_CASCADE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
+                 (0.033, 0.033, 0.067, 0.067))
+
+
+def zoo_configs():
+    """{name: (source config, model dict, test_cfg)}, written from the
+    mmdetection v1.0 configs named."""
+    rcnn = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
+                max_per_img=100)
+    masked = dict(rcnn, mask_thr_binary=0.5)
+    cascade_heads = [_mmdet_bbox_head(s, agnostic=True) for s in _CASCADE_STDS]
+    return {
+        "mask_rcnn": ("configs/mask_rcnn_r50_fpn_1x.py", dict(
+            type="MaskRCNN", **_mmdet_trunk(), bbox_head=_mmdet_bbox_head(),
+            mask_roi_extractor=_MASK_ROI, mask_head=_MASK_HEAD),
+            dict(rpn=_RPN_TEST, rcnn=masked)),
+        "cascade_mask_rcnn": ("configs/cascade_mask_rcnn_r50_fpn_1x.py", dict(
+            type="CascadeRCNN", num_stages=3, **_mmdet_trunk(),
+            bbox_head=cascade_heads, mask_roi_extractor=_MASK_ROI,
+            mask_head=_MASK_HEAD),
+            dict(rpn=_RPN_TEST, rcnn=masked, keep_all_stages=False)),
+        "htc": ("configs/htc/htc_r50_fpn_1x.py", dict(
+            type="HybridTaskCascade", num_stages=3, interleaved=True,
+            mask_info_flow=True, **_mmdet_trunk(), bbox_head=cascade_heads,
+            mask_roi_extractor=_MASK_ROI,
+            mask_head=dict(_MASK_HEAD, type="HTCMaskHead"),
+            semantic_roi_extractor=dict(
+                type="SingleRoIExtractor",
+                roi_layer=dict(type="RoIAlign", out_size=14, sample_num=2),
+                out_channels=256, featmap_strides=[8]),
+            semantic_head=dict(
+                type="FusedSemanticHead", num_ins=5, fusion_level=1,
+                num_convs=4, in_channels=256, conv_out_channels=256,
+                num_classes=183, ignore_label=255, loss_weight=0.2)),
+            dict(rpn=_RPN_TEST, rcnn=dict(masked, score_thr=0.001),
+                 keep_all_stages=False)),
+        "rpn": ("configs/rpn_r50_fpn_1x.py", dict(
+            type="RPN", **{k: v for k, v in _mmdet_trunk().items()
+                           if k != "bbox_roi_extractor"}),
+            dict(rpn=dict(_RPN_TEST, nms_pre=2000, nms_post=2000,
+                          max_num=2000))),
+        "faster_rcnn": ("configs/faster_rcnn_r50_fpn_1x.py", dict(
+            type="FasterRCNN", **_mmdet_trunk(), bbox_head=_mmdet_bbox_head()),
+            dict(rpn=_RPN_TEST, rcnn=rcnn)),
+        "fast_rcnn": ("configs/fast_rcnn_r50_fpn_1x.py", dict(
+            type="FastRCNN", **{k: v for k, v in _mmdet_trunk().items()
+                                if k != "rpn_head"},
+            bbox_head=_mmdet_bbox_head()), dict(rcnn=rcnn)),
+        "double_head": ("configs/double_heads/dh_faster_rcnn_r50_fpn_1x.py",
+                        dict(type="DoubleHeadRCNN", reg_roi_scale_factor=1.3,
+                             **_mmdet_trunk(), bbox_head=_mmdet_bbox_head(
+                                 type="DoubleConvFCBBoxHead", num_convs=4,
+                                 num_fcs=2, conv_out_channels=1024,
+                                 loss_cls=dict(type="CrossEntropyLoss",
+                                               use_sigmoid=False,
+                                               loss_weight=2.0),
+                                 loss_bbox=dict(type="SmoothL1Loss", beta=1.0,
+                                                loss_weight=2.0))),
+                        dict(rpn=_RPN_TEST, rcnn=rcnn)),
+        "ms_rcnn": ("configs/ms_rcnn/ms_rcnn_r50_caffe_fpn_1x.py", dict(
+            type="MaskScoringRCNN", **_mmdet_trunk("caffe"),
+            bbox_head=_mmdet_bbox_head(), mask_roi_extractor=_MASK_ROI,
+            mask_head=_MASK_HEAD,
+            mask_iou_head=dict(type="MaskIoUHead", num_convs=4, num_fcs=2,
+                               roi_feat_size=14, in_channels=256,
+                               conv_out_channels=256, fc_out_channels=1024,
+                               num_classes=81)),
+            dict(rpn=_RPN_TEST, rcnn=masked)),
+        "grid_rcnn": ("configs/grid_rcnn/grid_rcnn_gn_head_r50_fpn_2x.py", dict(
+            type="GridRCNN", **_mmdet_trunk(),
+            bbox_head=_mmdet_bbox_head(with_reg=False),
+            grid_roi_extractor=_MASK_ROI,
+            grid_head=dict(type="GridHead", grid_points=9, num_convs=8,
+                           in_channels=256, point_feat_channels=64,
+                           norm_cfg=dict(type="GN", num_groups=36),
+                           loss_grid=dict(type="CrossEntropyLoss",
+                                          use_sigmoid=True, loss_weight=15))),
+            dict(rpn=_RPN_TEST, rcnn=dict(score_thr=0.03,
+                                          nms=dict(type="nms", iou_thr=0.3),
+                                          max_per_img=100))),
+    }
+
+
+# source keys the port (as vps_tpu) has no field for: what it does instead
+_NO_COUNTERPART = {
+    "loss_cls": "dropped: inference computes no loss",
+    "loss_bbox": "dropped: inference computes no loss",
+    "loss_mask": "dropped: inference computes no loss",
+    "loss_grid": "dropped: inference computes no loss",
+    "norm_cfg": "dropped: FrozenBatchNorm, what requires_grad=False asks for",
+    "with_reg": "dropped: vps_tpu's SharedFCBBoxHead always regresses, and "
+                "the grid votes refine the decoded boxes",
+}
+
+
+def _zoo_port_cfg(model):
+    """The port's config of an mmdet model dict: the keys without a
+    counterpart dropped (GridHead's GN norm_cfg read as norm_groups), each
+    listed with what the port does instead."""
+    notes = ["pretrained: not loaded, seeded random weights (random_init_)"]
+
+    def clean(d, where):
+        d = dict(d)
+        for key in sorted(set(d) & set(_NO_COUNTERPART)):
+            if key == "norm_cfg" and where == "grid_head":
+                d["norm_groups"] = d.pop(key)["num_groups"]
+                notes.append("grid_head.norm_cfg: its GN num_groups as "
+                             "norm_groups")
+            else:
+                d.pop(key)
+                notes.append(f"{where}.{key}: {_NO_COUNTERPART[key]}")
+        return d
+
+    out = {}
+    for key, val in model.items():
+        if isinstance(val, list):
+            out[key] = [clean(v, f"{key}[{i}]") for i, v in enumerate(val)]
+        elif isinstance(val, dict):
+            out[key] = clean(val, key)
+        else:
+            out[key] = val
+    return out, notes
+
+
+def _zoo_test_notes(test_cfg):
+    notes = []
+    rpn = test_cfg.get("rpn", {})
+    if "nms_post" in rpn:
+        notes.append(f"rpn.nms_post={rpn['nms_post']}: not read (each level "
+                     f"keeps <= nms_pre={rpn['nms_pre']} after its NMS)")
+    if "min_bbox_size" in rpn:
+        notes.append(f"rpn.min_bbox_size={rpn['min_bbox_size']}: not read "
+                     f"(0 filters nothing)")
+    if "nms_across_levels" in rpn:
+        notes.append("rpn.nms_across_levels=False: per-level NMS, as read")
+    if "keep_all_stages" in test_cfg:
+        notes.append("keep_all_stages=False: the merged stages only, as read")
+    if "mask_thr_binary" in test_cfg.get("rcnn", {}):
+        notes.append("rcnn.mask_thr_binary: this script's paste reads it")
+    return notes
+
+
+def _zoo_image(device, hw=ZOO_HW, pad=ZOO_PAD):
+    """The seeded image: ``hw`` (800x1333) of normalised values,
+    zero-padded to ``pad`` (800x1344), (1, H, W, 3) on ``device``."""
+    import torch
+
+    rng = np.random.RandomState(SEED + 12)
+    img = np.zeros((1,) + tuple(pad) + (3,), np.float32)
+    img[0, :hw[0], :hw[1]] = rng.randn(*hw, 3)
+    return torch.from_numpy(img).to(device)
+
+
+def _zoo_profile(det, run, stages, label):
+    """One more image under torch.profiler: per-range kernel and host ms,
+    host syncs, the top kernels (vps_torch.profile's summary). Returns the
+    host syncs of the image."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vps_torch.profile import _device_kernels, _summary
+
+    acts = [ProfilerActivity.CPU]
+    if det.device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run()
+        _sync(det.device)
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = _device_kernels(events, stages)
+    syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+    print(f"{label}: one more image under torch.profiler: wall {wall:.4f}s, "
+          f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
+          f"{sum(kernels.values()) / (wall * 1e6):.3f}")
+    _summary(events, kernels, stages, 1, "image", f"{label}: ", top=6)
+    return syncs
+
+
+def _zoo_check(name, out, det, h, w):
+    """Finite outputs of the fixed capacities, boxes inside the image,
+    labels in range, and at least one valid detection."""
+    import torch
+
+    if "proposals" in out:
+        cap = det.test_cfg["rpn"]["max_num"]
+        shapes = {"proposals": (cap, 4), "scores": (cap,),
+                  "proposal_valid": (cap,)}
+        valid = out["proposal_valid"]
+        boxes = out["proposals"]
+    else:
+        cap = det.test_cfg["rcnn"]["max_per_img"]
+        shapes = {"det_bboxes": (cap, 5), "det_labels": (cap,),
+                  "det_valid": (cap,)}
+        if "mask_logits" in out:
+            shapes["mask_logits"] = (cap, 28, 28)
+        if "mask_scores" in out:
+            shapes["mask_scores"] = (cap,)
+        valid = out["det_valid"]
+        boxes = out["det_bboxes"][:, :4]
+        labels = out["det_labels"][valid]
+        if not bool(((labels >= 0) & (labels < 80)).all()):
+            raise AssertionError(f"{name}: labels out of [0, 80)")
+    for key, shape in shapes.items():
+        t = out[key]
+        if tuple(t.shape) != shape:
+            raise AssertionError(f"{name}: {key} shape {tuple(t.shape)} != "
+                                 f"{shape}")
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: {key} has non-finite values")
+    nvalid = int(valid.sum())
+    if nvalid == 0:
+        raise AssertionError(f"{name}: no valid detection")
+    b = boxes[valid]
+    if not bool((b >= 0).all() & (b[:, 0::2] <= w - 1).all()
+                & (b[:, 1::2] <= h - 1).all()):
+        raise AssertionError(f"{name}: boxes outside the {h}x{w} image")
+    return nvalid
+
+
+def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
+             images=ZOO_IMAGES):
+    """Build ``name``'s detector at full width with seeded random weights,
+    drive ``images`` images after 1 warm-up on the seeded image (``hw``
+    padded to ``pad``), check the outputs, paste the masks at ``hw``,
+    profile one more image. Returns (outputs, launch counts)."""
+    import torch
+    from vps_torch.models.detectors import build_detector, random_init_
+    from vps_torch.ops.mask import paste_masks
+
+    source, model, test_cfg = zoo_configs()[name]
+    cfg, notes = _zoo_port_cfg(model)
+    notes += _zoo_test_notes(test_cfg)
+    t0 = time.perf_counter()
+    det = random_init_(build_detector(cfg, test_cfg=test_cfg, device=device),
+                       seed=SEED)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    img = _zoo_image(device, hw, pad)
+    args = () if proposals is None else proposals
+    on_card = torch.device(device).type == "cuda"
+
+    def run():
+        return det.predict(img, *args)
+
+    run()  # warm-up
+    _sync(device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(images):
+        out = run()
+    _sync(device)
+    ips = images / (time.perf_counter() - t0)
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    nvalid = _zoo_check(name, out, det, *pad)
+    stages = ("backbone_fpn", "rpn", "semantic_head", "bbox_dets", "mask",
+              "grid")
+    syncs = _zoo_profile(det, run, stages, name)
+    extra = ""
+    if "mask_logits" in out:
+        thr = test_cfg["rcnn"]["mask_thr_binary"]
+        valid = out["det_valid"]
+        t0 = time.perf_counter()
+        masks = paste_masks(torch.sigmoid(out["mask_logits"][valid]),
+                            out["det_bboxes"][valid, :4], hw, binarize=thr)
+        _sync(device)
+        paste_s = time.perf_counter() - t0
+        if tuple(masks.shape) != (nvalid,) + tuple(hw):
+            raise AssertionError(f"{name}: pasted masks {tuple(masks.shape)}")
+        area = masks.sum((1, 2))
+        extra = (f", masks pasted at {hw[0]}x{hw[1]} and binarised at "
+                 f"{thr}: {nvalid} in {paste_s * 1e3:.1f} ms, pixels a mask "
+                 f"mean {float(area.mean()):.0f} (min {float(area.min()):.0f}, "
+                 f"max {float(area.max()):.0f})")
+        if "mask_scores" in out:
+            ms = out["mask_scores"][valid]
+            extra += (f", mask scores in [{float(ms.min()):.4f}, "
+                      f"{float(ms.max()):.4f}]")
+    what = "proposals" if "proposals" in out else "valid detections"
+    print(f"{name}: {type(det).__name__} from mmdetection v1.0 {source}, R-50 "
+          f"FPN, 81 classes, {hw[0]}x{hw[1]} padded to "
+          f"{pad[0]}x{pad[1]}, init {init_s:.1f}s, "
+          f"{ips:.3f} images/s over {images} images after 1 warm-up, peak "
+          f"mem {peak / 2**30:.2f} GiB, {what} {nvalid}, host syncs an image "
+          f"{syncs}, launches {launches}{extra}; TF32 off; card: {smi}")
+    print(f"{name}: source keys without a counterpart: " + "; ".join(notes))
+    if on_card and launches != _want():
+        raise AssertionError(f"{name}: port kernel launches {launches}: the "
+                             f"zoo's path runs none of them")
+    return out, launches
+
+
+def phase_zoo(smi, names, device="cuda", **kw):
+    """Each named detector of zoo_configs at full width; Fast R-CNN takes
+    the RPN's proposals (the rpn run must come first). ``kw``: _zoo_run's
+    image size and count (a CPU rehearsal's). Returns the launch counts by
+    path."""
+    paths, props = {}, None
+    for name in names:
+        out, launches = _zoo_run(name, smi, device,
+                                 props if name == "fast_rcnn" else None, **kw)
+        if name == "rpn":
+            props = (out["proposals"], out["proposal_valid"])
+        paths[name] = launches
+    return paths
+
+
+# the tiny shapes of tests/test_two_stage.py (R-18, 32-wide FPN, 5 classes)
+def _tiny_zoo_cfgs():
+    trunk = dict(
+        backbone=dict(type="ResNet", depth=18, frozen_stages=-1,
+                      out_indices=(0, 1, 2, 3)),
+        neck=dict(type="FPN", in_channels=(64, 128, 256, 512),
+                  out_channels=32, num_outs=5),
+        rpn_head=dict(in_channels=32, feat_channels=32, anchor_scales=[8],
+                      anchor_ratios=[0.5, 1.0, 2.0],
+                      anchor_strides=[4, 8, 16, 32, 64]),
+        bbox_roi_extractor=dict(roi_layer=dict(out_size=7, sample_num=2),
+                                out_channels=32,
+                                featmap_strides=[4, 8, 16, 32]))
+    head = dict(num_classes=5, in_channels=32, fc_out_channels=32,
+                roi_feat_size=7)
+    mask = dict(mask_roi_extractor=dict(roi_layer=dict(out_size=14,
+                                                       sample_num=2),
+                                        featmap_strides=[4, 8, 16, 32]),
+                mask_head=dict(num_convs=1, in_channels=32,
+                               conv_out_channels=32, num_classes=5))
+    stages = [dict(head, target_stds=s) for s in _CASCADE_STDS[:2]]
+    htc = dict(trunk, num_stages=2, bbox_head=stages,
+               mask_roi_extractor=mask["mask_roi_extractor"],
+               mask_head=dict(mask["mask_head"], type="HTCMaskHead"),
+               semantic_roi_extractor=dict(
+                   roi_layer=dict(out_size=14, sample_num=2),
+                   featmap_strides=[8]),
+               semantic_head=dict(num_ins=5, fusion_level=1, num_convs=1,
+                                  in_channels=32, conv_out_channels=32,
+                                  num_classes=7))
+    return {
+        "FasterRCNN": dict(trunk, bbox_head=head),
+        "MaskRCNN": dict(trunk, bbox_head=head, **mask),
+        "FastRCNN": dict({k: v for k, v in trunk.items() if k != "rpn_head"},
+                         bbox_head=head),
+        "RPN": {k: trunk[k] for k in ("backbone", "neck", "rpn_head")},
+        "DoubleHeadRCNN": dict(trunk, reg_roi_scale_factor=1.3, bbox_head=dict(
+            type="DoubleConvFCBBoxHead", num_convs=1, num_fcs=1,
+            in_channels=32, conv_out_channels=64, fc_out_channels=32,
+            num_classes=5)),
+        "MaskScoringRCNN": dict(
+            trunk, bbox_head=head, **mask,
+            mask_iou_head=dict(num_convs=2, num_fcs=1, roi_feat_size=14,
+                               in_channels=32, conv_out_channels=32,
+                               fc_out_channels=32, num_classes=5)),
+        "GridRCNN": dict(
+            trunk, bbox_head=head,
+            grid_roi_extractor=dict(roi_layer=dict(out_size=14, sample_num=2),
+                                    featmap_strides=[4, 8, 16, 32]),
+            grid_head=dict(grid_points=4, num_convs=2, roi_feat_size=14,
+                           in_channels=32, point_feat_channels=8,
+                           norm_groups=4)),
+        "CascadeRCNN": dict(trunk, num_stages=2, bbox_head=stages, **mask),
+        "HybridTaskCascade": htc,
+        "HTC": dict(htc, semantic_head=None, mask_info_flow=False),
+    }
+
+
+SMALL_ZOO_MASK_TOL = 2e-3
+
+
+def phase_small_zoo(device="cuda"):
+    """Each zoo type (and the HTC alias, without the semantic head or the
+    flow) at tests/test_two_stage.py's tiny shapes on one seeded 64x64
+    image: the card against the port's CPU path with the same weights,
+    under phase_small's gates for detections (equal det_valid and
+    det_labels, boxes and scores within 2e-2, at least one detection), mask
+    logits and mask scores within SMALL_ZOO_MASK_TOL (the mask head's few
+    convs in f32 on cuDNN against the CPU's: ~1e-5 of logits of magnitude
+    ~1, so a tenth of a percent is a fault, not rounding)."""
+    import torch
+    from vps_torch.models.detectors import build_detector, random_init_
+
+    test_cfg = dict(rpn=dict(nms_pre=16, nms_thr=0.7, max_num=8),
+                    rcnn=dict(score_thr=0.05, nms=dict(type="nms",
+                                                       iou_thr=0.5),
+                              max_per_img=6))
+    rng = np.random.RandomState(SEED + 13)
+    img = torch.from_numpy(rng.randn(1, 64, 64, 3).astype(np.float32))
+    props = torch.tensor([[2.0, 2.0, 30.0, 32.0], [28.0, 6.0, 62.0, 42.0],
+                          [8.0, 30.0, 44.0, 62.0], [0.0, 0.0, 16.0, 16.0]] * 4)
+    pvalid = torch.ones(16, dtype=torch.bool)
+    for kind, cfg in _tiny_zoo_cfgs().items():
+        cfg = dict(cfg, type=kind)
+        cpu = random_init_(build_detector(cfg, test_cfg=test_cfg,
+                                          device="cpu"), seed=SEED + 1)
+        # a milder classifier, as _small_pair's: near-saturated
+        # probabilities tie in f32 and reorder between the two devices
+        with torch.no_grad():
+            for n, m in cpu.named_modules():
+                if n.endswith("fc_cls"):
+                    m.weight.mul_(0.25)
+                    m.bias.mul_(0.25)
+        gpu = build_detector(cfg, test_cfg=test_cfg, device=device)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        extra = (props, pvalid) if kind == "FastRCNN" else ()
+        want = cpu.predict(img, *extra)
+        got = {k: v.cpu() for k, v in
+               gpu.predict(img.to(device), *(a.to(device) for a in extra)).items()}
+        if kind == "RPN":
+            ok = torch.equal(got["proposal_valid"], want["proposal_valid"])
+            err = float((got["proposals"] - want["proposals"]).abs().max())
+            n = int(want["proposal_valid"].sum())
+            print(f"small zoo: {kind} card vs cpu: proposals {n} "
+                  f"{'equal' if ok else 'DIFFER'}, box max err {err:.2e} "
+                  f"(tol 2e-2)")
+            if not ok or n == 0 or err > 2e-2:
+                raise AssertionError(f"small zoo {kind} disagrees")
+            continue
+        same = (torch.equal(got["det_valid"], want["det_valid"])
+                and torch.equal(got["det_labels"], want["det_labels"]))
+        err = float((got["det_bboxes"] - want["det_bboxes"]).abs().max())
+        n = int(want["det_valid"].sum())
+        merr = {k: float((got[k] - want[k]).abs().max())
+                for k in ("mask_logits", "mask_scores") if k in want}
+        print(f"small zoo: {kind} card vs cpu: dets {n} "
+              f"{'equal' if same else 'DIFFER'}, box/score max err {err:.2e} "
+              f"(tol 2e-2)" + "".join(
+                  f", {k} max err {v:.2e} (tol {SMALL_ZOO_MASK_TOL:g})"
+                  for k, v in merr.items()))
+        if (not same or n == 0 or err > 2e-2
+                or any(v > SMALL_ZOO_MASK_TOL for v in merr.values())):
+            raise AssertionError(f"small zoo {kind} disagrees between card "
+                                 f"and cpu")
+
+
 def main() -> int:
     import torch
 
@@ -2100,6 +2614,9 @@ def main() -> int:
     phase_small_aug()
     phase_small_train()
     phase_small_train(sampler=dict(OHEM, num=32))
+    paths.update(phase_zoo(smi, ("mask_rcnn", "cascade_mask_rcnn", "htc")))
+    paths.update({f"zoo {k}": v for k, v in phase_zoo(smi, ZOO_OTHERS).items()})
+    phase_small_zoo()
     paths.update(phase_dataset(smi, numerics))
     paths.update(phase_viper(smi))
     # launches: the run of the kernel's own path; by path: every path's run

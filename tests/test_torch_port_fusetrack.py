@@ -1,20 +1,22 @@
-"""Port parity, the whole slice: vps_torch's FuseTrack video inference held
-against vps_tpu's ``predict`` on a 2-frame clip (64x128, ResNet-18 trunk,
-TinyFlow, `exact` preset, f32) with the same weights, asserting what
-tests/test_full_graph_parity.py asserts. Plus the weight bridge round trip,
-predict_video's reset semantics, and the static no-JAX-import check.
+"""Port parity, the whole slice: the shared pieces of the FuseTrack clip
+tests (vps_torch's FuseTrack video inference held against vps_tpu's
+``predict`` on a 2-frame clip, 64x128, ResNet-18 trunk, TinyFlow, `exact`
+preset, f32, with the same weights, asserting what
+tests/test_full_graph_parity.py asserts). The clip's frames, the weight
+bridge round trip and predict_video's reset semantics are one-test files of
+their own (``test_torch_port_fusetrack_frame0.py``, ``_frame1``,
+``_bridge``, ``_resets``), the static no-JAX-import check is
+``test_torch_port_all_imports.py``: pytest-xdist's loadfile scheduler
+queues files by their number of tests, most first, so one-test files start
+after the files with several and leave the suite's wall where it is.
 
 Cost: JAX variables come from ``convert_detector`` and seeded TinyFlow
-convs (no init and no trace of the detector), one build_sd serves the
-file's tests, and one jitted ``predict`` is reused for both frames in a
-module-scoped fixture.
+convs (no init and no trace of the detector), and one jitted ``predict`` is
+reused for both frames.
 """
 
-import ast
-from pathlib import Path
 
 import numpy as np
-import pytest
 import jax
 import jax.numpy as jnp
 import torch
@@ -39,7 +41,6 @@ H, W = 64, 128
 CAP = 64
 RPN_CFG = dict(nms_pre=128, nms_post=128, max_num=64, nms_thr=0.7)
 PANO_CFG = dict(score_thresh=0.20, nms_thresh=0.5, max_det=12)
-REPO = Path(__file__).resolve().parent.parent
 
 
 def _cfgs(zoo_mod):
@@ -84,21 +85,20 @@ def _weights(params_conv, stats_conv):
     return jax.tree.map(np.asarray, (params, stats))
 
 
-@pytest.fixture(scope="module")
-def weights():
-    """The file's one build_sd (seed 3) and its conversion: (state_dict,
-    params, batch_stats, keys used, the rng's state after the draws)."""
+def build_weights():
+    """One build_sd (seed 3) and its conversion: (state_dict, params,
+    batch_stats, keys used, the rng's state after the draws)."""
     rng = np.random.RandomState(3)
     sd = build_sd(rng)
     params_conv, stats_conv, used = convert_detector(sd, depth=18)
     return sd, params_conv, stats_conv, used, rng.get_state()
 
 
-@pytest.fixture(scope="module")
-def clip(weights):
-    """Both stacks on one clip; returns (JAX per-frame outputs, port stacked
-    outputs)."""
-    _, params_conv, stats_conv, _, rng_state = weights
+def run_clip(frames):
+    """The first ``frames`` (1 or 2) frames of the clip through both
+    stacks; returns (JAX per-frame outputs, port outputs stacked over
+    frames)."""
+    _, params_conv, stats_conv, _, rng_state = build_weights()
     rng = np.random.RandomState()
     rng.set_state(rng_state)
     cfg, tcfg = _cfgs(jzoo)
@@ -107,12 +107,13 @@ def clip(weights):
     img0 = rng.randn(1, H, W, 3).astype(np.float32)
     img1 = (0.7 * img0 + 0.3 * rng.randn(1, H, W, 3)).astype(np.float32)
     img2 = (0.7 * img1 + 0.3 * rng.randn(1, H, W, 3)).astype(np.float32)
+    pairs = ((img1, img0), (img2, img1))[:frames]
     state = j_empty_track_state(cap=CAP)
     params, stats = _weights(params_conv, stats_conv)
     predict = jax.jit(lambda v, im, ref, st: det.apply(
         v, im, ref, st, method=det.predict))
     ours = []
-    for im, ref in ((img1, img0), (img2, img1)):
+    for im, ref in pairs:
         out, state = predict({"params": params, "batch_stats": stats},
                              jnp.asarray(im), jnp.asarray(ref), state)
         ours.append(jax.device_get(out))
@@ -121,15 +122,10 @@ def clip(weights):
     port = PanopticFuseTrack(test_cfg=ptcfg, device="cpu", **pcfg)
     port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
     theirs, _ = predict_video(
-        port, torch.from_numpy(np.stack([img1, img2])), [False, False],
-        empty_track_state(CAP, device="cpu"), torch.from_numpy(img0))
+        port, torch.from_numpy(np.stack([im for im, _ in pairs])),
+        [False] * frames, empty_track_state(CAP, device="cpu"),
+        torch.from_numpy(img0))
     return ours, {k: v.numpy() for k, v in theirs.items()}
-
-
-@pytest.mark.parametrize("frame", [0, 1])
-def test_fusetrack_clip_matches_jax(clip, frame):
-    ours_all, port = clip
-    assert_frame_matches(ours_all[frame], {k: v[frame] for k, v in port.items()})
 
 
 def assert_frame_matches(ours, p):
@@ -156,80 +152,3 @@ def assert_frame_matches(ours, p):
     pan = float(np.mean(p["panoptic_outputs"] == ours["panoptic_outputs"]))
     assert sseg >= 0.999, f"semantic agreement {sseg}"
     assert pan >= 0.999, f"panoptic agreement {pan}"
-
-
-def test_weight_bridge_round_trip(weights):
-    """build_sd -> convert_detector -> state_dict_from_jax gives back every
-    key of build_sd, bit for bit, and loads strictly into the port."""
-    sd, params, stats, used, _ = weights
-    assert used == set(sd)
-    back = state_dict_from_jax(params, stats)
-    assert set(back) == set(sd)
-    for k, v in sd.items():
-        np.testing.assert_array_equal(back[k].numpy(), v, err_msg=k)
-    cfg, tcfg = _cfgs(zoo)
-    cfg["flow"] = dict(compute_dtype="float32")  # full FlowNet2 keys absent
-    port = PanopticFuseTrack(test_cfg=tcfg, device="cpu", **cfg)
-    missing, unexpected = port.load_state_dict(back, strict=False)
-    assert not unexpected
-    assert all(k.startswith("flownet2.") for k in missing)
-
-
-def test_predict_video_resets(weights):
-    """A reset frame clears the track state, is its own reference and
-    recomputes the feature carry: the clip [a, b(reset)] gives b the same
-    outputs as a fresh clip [b(reset)]."""
-    cfg, tcfg = _cfgs(zoo)
-    port = PanopticFuseTrack(test_cfg=tcfg, device="cpu", **cfg)
-    sd = state_dict_from_jax(*weights[1:3])
-    torch.manual_seed(0)
-    for name in ("c1", "c2", "pred"):
-        conv = getattr(port.flownet2, name)
-        sd[f"flownet2.{name}.weight"] = torch.randn_like(conv.weight) * 0.1
-        sd[f"flownet2.{name}.bias"] = torch.zeros_like(conv.bias)
-    port.load_state_dict(sd, strict=True)
-    rng = np.random.RandomState(2)
-    a, b = (torch.from_numpy(rng.randn(1, 1, H, W, 3).astype(np.float32))
-            for _ in range(2))
-    empty = empty_track_state(CAP, device="cpu")
-    two, (state2, _, last) = predict_video(port, torch.cat([a, b]),
-                                           [True, True], empty, a[0])
-    one, (state1, _, _) = predict_video(port, b, [True], empty, a[0])
-    assert torch.equal(last, b[0])
-    for k in one:
-        torch.testing.assert_close(two[k][1], one[k][0], rtol=0, atol=0)
-    for x, y in zip(state2, state1):
-        torch.testing.assert_close(x, y, rtol=0, atol=0)
-
-
-def test_port_imports_no_jax():
-    """vps_torch and chip_smoke.py import nothing of jax, flax, optax or
-    vps_tpu (static check over every module's import statements), the
-    training, data, eval, tools, utils and config modules included."""
-    banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
-    files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 20
-    names = {p.relative_to(REPO).as_posix() for p in files}
-    required = {f"vps_torch/{m}.py" for m in (
-        "core/assigner", "core/sampler", "core/targets", "ops/losses",
-        "ops/mask", "train/optim", "train/step", "train/runner",
-        "utils/checkpoint", "utils/numerics", "config", "data/coco",
-        "data/transforms", "data/dataset", "data/loader", "data/synth",
-        "eval/pq", "eval/vpq", "eval/unified", "train/eval_hook",
-        "tools/train", "tools/test_vpq", "tools/eval_vpq",
-        "configs/cityscapes/fusetrack", "configs/cityscapes/fusetrack_fast",
-        "configs/cityscapes/fuse", "configs/cityscapes/track",
-        "configs/viper/fusetrack", "eval/viper", "tools/eval_ipq",
-        "utils/visualize", "utils/flow")}
-    assert required <= names, required - names
-    for path in files:
-        tree = ast.parse(path.read_text(), filename=str(path))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom):
-                names = [node.module or ""]
-            else:
-                continue
-            for name in names:
-                assert name.split(".")[0] not in banned, f"{path}: imports {name}"

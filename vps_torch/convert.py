@@ -8,8 +8,14 @@ Layout transforms (inverse of the torch -> JAX converter):
   deconv  (kh, kw, I, O), flipped   -> (I, O, kh, kw)
   linear  (I, O)                    -> (O, I)
   linear over ROI features, flattened (H, W, C) in JAX -> torch's (C, H, W)
+  grouped deconv (kh, kw, I/G, O), flipped -> (I, O/G, kh, kw)
   FrozenBN scale/bias + batch_stats mean/var -> weight/bias/running_mean/var
   GroupNorm scale/bias              -> weight/bias
+
+The R-CNN zoo's flax submodules are named after their attributes
+(``backbone_m``, ``bbox_head_m``, ``bbox_heads_0``, ...): ``_torch_key``
+maps ``<name>_m`` to mmdet's ``<name>`` and a cascade's ``<head>s_<i>`` to
+``<head>.<i>`` before the rules below are read.
 """
 
 from __future__ import annotations
@@ -43,6 +49,23 @@ def linear_w(k):
     return k.T
 
 
+def grouped_deconv_w(k, groups):
+    kh, kw, cin_g, cout = k.shape
+    w = k[::-1, ::-1].reshape(kh, kw, cin_g, groups, cout // groups)
+    return w.transpose(3, 2, 4, 0, 1).reshape(groups * cin_g, cout // groups,
+                                              kh, kw)
+
+
+def grid_deconv1_w(k):
+    """Grid R-CNN's deconv1: grid_points groups of (in = out) channels."""
+    return grouped_deconv_w(k, k.shape[3] // k.shape[2])
+
+
+def grid_deconv2_w(k):
+    """Grid R-CNN's deconv2: one output channel a group."""
+    return grouped_deconv_w(k, k.shape[3])
+
+
 def linear_chw_w(k):
     rows, o = k.shape
     c = rows // (ROI_HW * ROI_HW)
@@ -52,6 +75,7 @@ def linear_chw_w(k):
 _WB = {"kernel": "weight", "bias": "bias"}
 _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
+_GN = {"scale": "weight", "bias": "bias"}
 _FLOW_NETS = "flownetc|flownets_1|flownets_2|flownets_d|flownetfusion"
 
 
@@ -60,24 +84,66 @@ _FLOW_NETS = "flownetc|flownets_1|flownets_2|flownets_d|flownetfusion"
 RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
     (r"backbone/conv1/Conv_0", "backbone.conv1", _WB, conv_w),
     (r"backbone/bn1", "backbone.bn1", _BN, None),
-    (r"backbone/layer(\d+)_(\d+)/(conv\d)/Conv_0", "backbone.layer{0}.{1}.{2}",
-     _WB, conv_w),
-    (r"backbone/layer(\d+)_(\d+)/(bn\d)", "backbone.layer{0}.{1}.{2}", _BN, None),
-    (r"backbone/layer(\d+)_(\d+)/downsample_conv/Conv_0",
-     "backbone.layer{0}.{1}.downsample.0", _WB, conv_w),
-    (r"backbone/layer(\d+)_(\d+)/downsample_bn",
-     "backbone.layer{0}.{1}.downsample.1", _BN, None),
+    # the backbone's stages, and the C4 detectors' shared head (one stage)
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)/(conv\d)/Conv_0",
+     "{0}.layer{1}.{2}.{3}", _WB, conv_w),
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)/(bn\d)", "{0}.layer{1}.{2}.{3}",
+     _BN, None),
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)/downsample_conv/Conv_0",
+     "{0}.layer{1}.{2}.downsample.0", _WB, conv_w),
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)/downsample_bn",
+     "{0}.layer{1}.{2}.downsample.1", _BN, None),
     (r"neck/lateral(\d+)/Conv_0", "neck.lateral_convs.{0}.conv", _WB, conv_w),
     (r"neck/fpn(\d+)/Conv_0", "neck.fpn_convs.{0}.conv", _WB, conv_w),
     (r"rpn_head/(rpn_\w+)/Conv_0", "rpn_head.{0}", _WB, conv_w),
     (r"bbox_head/shared_fc0", "bbox_head.shared_fcs.0", _WB, linear_chw_w),
     (r"bbox_head/shared_fc(\d+)", "bbox_head.shared_fcs.{0}", _WB, linear_w),
     (r"bbox_head/(fc_cls|fc_reg)", "bbox_head.{0}", _WB, linear_w),
+    # DoubleConvFCBBoxHead: the residual block, bottlenecks, the fc branch
+    (r"bbox_head/res_conv([12])/Conv_0", "bbox_head.res_block.conv{0}.conv",
+     _WB, conv_w),
+    (r"bbox_head/res_bn([12])", "bbox_head.res_block.conv{0}.bn", _BN, None),
+    (r"bbox_head/res_identity/Conv_0", "bbox_head.res_block.conv_identity.conv",
+     _WB, conv_w),
+    (r"bbox_head/res_id_bn", "bbox_head.res_block.conv_identity.bn", _BN, None),
+    (r"bbox_head/conv_branch(\d+)/(conv\d)/Conv_0",
+     "bbox_head.conv_branch.{0}.{1}", _WB, conv_w),
+    (r"bbox_head/conv_branch(\d+)/(bn\d)", "bbox_head.conv_branch.{0}.{1}",
+     _BN, None),
+    (r"bbox_head/fc_branch0", "bbox_head.fc_branch.0", _WB, linear_chw_w),
+    (r"bbox_head/fc_branch(\d+)", "bbox_head.fc_branch.{0}", _WB, linear_w),
     (r"track_head/fc0", "track_head.fcs.0", _WB, linear_chw_w),
     (r"track_head/fc(\d+)", "track_head.fcs.{0}", _WB, linear_w),
     (r"mask_head/conv(\d+)/Conv_0", "mask_head.convs.{0}.conv", _WB, conv_w),
     (r"mask_head/upsample", "mask_head.upsample", _WB, deconv_w),
     (r"mask_head/conv_logits/Conv_0", "mask_head.conv_logits", _WB, conv_w),
+    (r"mask_head/conv_res/Conv_0/Conv_0", "mask_head.conv_res.conv", _WB,
+     conv_w),  # HTCMaskHead
+    (r"mask_iou_head/conv(\d+)/Conv_0", "mask_iou_head.convs.{0}", _WB, conv_w),
+    (r"mask_iou_head/fc0", "mask_iou_head.fcs.0", _WB, linear_chw_w),
+    (r"mask_iou_head/fc(\d+)", "mask_iou_head.fcs.{0}", _WB, linear_w),
+    (r"mask_iou_head/fc_mask_iou", "mask_iou_head.fc_mask_iou", _WB, linear_w),
+    (r"grid_head/conv(\d+)/Conv_0", "grid_head.convs.{0}.conv", _WB, conv_w),
+    (r"grid_head/gn(\d+)", "grid_head.convs.{0}.gn", _GN, None),
+    (r"grid_head/fo_trans(\d+)_(\d+)_dw/Conv_0", "grid_head.forder_trans.{0}.{1}.0",
+     _WB, conv_w),
+    (r"grid_head/fo_trans(\d+)_(\d+)_pw/Conv_0", "grid_head.forder_trans.{0}.{1}.1",
+     _WB, conv_w),
+    (r"grid_head/so_trans(\d+)_(\d+)_dw/Conv_0", "grid_head.sorder_trans.{0}.{1}.0",
+     _WB, conv_w),
+    (r"grid_head/so_trans(\d+)_(\d+)_pw/Conv_0", "grid_head.sorder_trans.{0}.{1}.1",
+     _WB, conv_w),
+    (r"grid_head/deconv1", "grid_head.deconv1", _WB, grid_deconv1_w),
+    (r"grid_head/deconv2", "grid_head.deconv2", _WB, grid_deconv2_w),
+    (r"grid_head/norm1", "grid_head.norm1", _GN, None),
+    (r"semantic_head/lateral(\d+)/Conv_0/Conv_0",
+     "semantic_head.lateral_convs.{0}.conv", _WB, conv_w),
+    (r"semantic_head/conv(\d+)/Conv_0/Conv_0", "semantic_head.convs.{0}.conv",
+     _WB, conv_w),
+    (r"semantic_head/conv_embedding/Conv_0/Conv_0",
+     "semantic_head.conv_embedding.conv", _WB, conv_w),
+    (r"semantic_head/conv_logits/Conv_0", "semantic_head.conv_logits", _WB,
+     conv_w),
     (r"panopticFPN/dc(\d)/conv_offset/Conv_0",
      "panopticFPN.deform_convs.0.{dc}.conv_offset", _WB, conv_w),
     (r"panopticFPN/dc(\d)", "panopticFPN.deform_convs.0.{dc}.conv",
@@ -112,7 +178,23 @@ RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
 _COMPILED = [(re.compile(p + "$"), t, m, f) for p, t, m, f in RULES]
 
 
+_ZOO_TOP = re.compile(r"(\w+?)(?:_m|s_(\d+))$")
+
+
 def _torch_key(path: Tuple[str, ...]):
+    stage = None
+    m = _ZOO_TOP.match(path[0])
+    if m:
+        path = (m.group(1),) + tuple(path[1:])
+        stage = m.group(2)
+    key, fn = _rule_key(path)
+    if stage is not None:  # a cascade's <head>.<i>.<rest>
+        head, rest = key.split(".", 1)
+        key = f"{head}.{stage}.{rest}"
+    return key, fn
+
+
+def _rule_key(path: Tuple[str, ...]):
     body, leaf = "/".join(path[:-1]), path[-1]
     for pat, tmpl, leaf_map, fn in _COMPILED:
         m = pat.match(body)
@@ -130,10 +212,11 @@ def _torch_key(path: Tuple[str, ...]):
 
 def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack,
-    PanopticFuse or PanopticTrack (either fuse neck, either refine type), as
-    numpy arrays -> the port's mmdet-named state_dict (float32 tensors),
-    accepted by the same detector's ``load_state_dict(strict=True)``: a
-    tower the tree lacks has no keys."""
+    PanopticFuse or PanopticTrack (either fuse neck, either refine type), or
+    of a two-stage or cascade R-CNN of the zoo, as numpy arrays -> the
+    port's mmdet-named state_dict (float32 tensors), accepted by the same
+    detector's ``load_state_dict(strict=True)``: a tower the tree lacks has
+    no keys."""
     sd: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats or {}):
         for path, value in _flatten(tree):

@@ -76,6 +76,7 @@ from vps_torch.ops.losses import (
 )
 from vps_torch.ops.nms import NEG_INF, nms, top_k
 from vps_torch.ops.roi_align import multilevel_roi_align
+from vps_torch.registry import DETECTORS
 
 IMG_MEAN = np.asarray([123.675, 116.28, 103.53], np.float32)
 IMG_STD = np.asarray([58.395, 57.12, 57.375], np.float32)
@@ -706,8 +707,10 @@ class PanopticTrack(PanopticFuseTrack):
                          **kwargs)
 
 
-DETECTORS = {cls.__name__: cls
-             for cls in (PanopticFuseTrack, PanopticFuse, PanopticTrack)}
+for _cls in (PanopticFuseTrack, PanopticFuse, PanopticTrack):
+    DETECTORS.register(_cls)
+# the detectors whose predict takes a reference frame and a TrackState
+PANOPTIC_DETECTORS = ("PanopticFuseTrack", "PanopticFuse", "PanopticTrack")
 
 
 @torch.inference_mode()
@@ -916,28 +919,20 @@ def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
     return step
 
 
-def build_detector(model_cfg: Dict[str, Any], train_cfg=None, test_cfg=None,
-                   device="cuda") -> PanopticFuseTrack:
-    """A detector from a config's ``model`` dict, its ``type`` naming the
-    class: PanopticFuseTrack, PanopticFuse or PanopticTrack. A tower set to
-    None (``track_head``, ``extra_neck``) is left out."""
-    cfg = dict(model_cfg)
-    kind = cfg.pop("type", "PanopticFuseTrack")
-    if kind not in DETECTORS:
-        raise ValueError(f"unknown detector type {kind!r}; the port has "
-                         f"{sorted(DETECTORS)}")
-    return DETECTORS[kind](train_cfg=train_cfg, test_cfg=test_cfg,
-                           device=device, **cfg)
+# the box heads' classifiers: bbox_head.fc_cls, a cascade's bbox_head.{i}.fc_cls
+_CLS = r"^bbox_head\.(\d+\.)?fc_cls$"
 
 
-def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:
+def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights that keep activations O(1) through the whole
     chain and give the detection heads a usable population: weights
     N(0, gain^2 / fan_in) (fan-in scaling as in the JAX parity tests, gain
     1.4, 1.0 for the linear FPN convs and classifiers), small biases, BN/GN affine near identity, the last BN of each
     residual branch x0.2 (so the residual sums do not double the variance
     block after block), small DCN offsets, and a wide classifier so some
-    proposals clear the 0.6 panoptic score threshold."""
+    proposals clear the 0.6 panoptic score threshold (and, for the R-CNN
+    zoo's detectors, their 81-way softmax's 0.05; every box head's
+    ``fc_cls``, a cascade's included). Any of the port's detectors."""
     gen = torch.Generator().manual_seed(seed)
     norms = {n for n, m in det.named_modules()
              if isinstance(m, (FrozenBatchNorm, nn.GroupNorm))}
@@ -946,7 +941,7 @@ def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:
                   if isinstance(m, nn.ConvTranspose2d)}
     # (pattern over the module name, gain); linear maps with no ReLU after
     # them keep the variance at gain 1.0
-    gains = [(r"conv_offset$", 0.3), (r"^bbox_head\.fc_cls$", 4.0),
+    gains = [(r"conv_offset$", 0.3), (_CLS, 4.0),
              (r"fc_reg$|rpn_reg$", 0.4),
              (r"^neck\.|rpn_cls$|conv_pred\.conv$", 1.0)]
     with torch.no_grad():
@@ -962,7 +957,7 @@ def random_init_(det: PanopticFuseTrack, seed: int = 0) -> PanopticFuseTrack:
                 if leaf == "weight" and module.endswith("." + last_bn):
                     val = val * 0.2
             elif leaf == "bias":
-                val = z * (1.0 if module == "bbox_head.fc_cls" else 0.02)
+                val = z * (1.0 if re.search(_CLS, module) else 0.02)
             else:
                 fan_in = p[0].numel()
                 if module in transposed:  # (in, out, kh, kw)

@@ -9,8 +9,10 @@ import torch
 import torch.nn as nn
 
 from vps_torch.models.layers import ConvModule, max_pool, resize_nearest
+from vps_torch.registry import NECKS
 
 
+@NECKS.register
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
                  out_channels: int = 256, num_outs: int = 5,

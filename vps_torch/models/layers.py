@@ -35,16 +35,16 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, bias=True, dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, groups: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, bias=bias, device=device)
+                         padding, bias=bias, device=device, groups=groups)
         self.compute_dtype = dtype
 
     def forward(self, x):
         dt = self.compute_dtype or torch.float32
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding)
+                        self.padding, 1, self.groups)
 
 
 class ConvTranspose(nn.ConvTranspose2d):

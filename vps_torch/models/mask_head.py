@@ -1,5 +1,6 @@
 """FCNMaskHead (port of vps_tpu/models/mask_head.py): 4 x (3x3 conv + ReLU)
--> 2x deconv + ReLU -> 1x1 conv to num_classes channels."""
+-> 2x deconv + ReLU -> 1x1 conv to num_classes channels; and
+``select_mask_channel``, each RoI's channel by its 1-based label."""
 
 from __future__ import annotations
 
@@ -7,8 +8,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from vps_torch.models.layers import Conv, ConvModule, ConvTranspose2x
+from vps_torch.registry import HEADS
 
 
+@HEADS.register
 class FCNMaskHead(nn.Module):
     def __init__(self, num_convs=4, in_channels=256, conv_out_channels=256,
                  num_classes=9, device=None):
@@ -28,3 +31,10 @@ class FCNMaskHead(nn.Module):
         for conv in self.convs:
             x = conv(x)
         return self.conv_logits(F.relu(self.upsample(x)))
+
+
+def select_mask_channel(mask_logits, labels):
+    """mask_logits (R, K, S, S), labels (R,) 1-based -> (R, S, S): each RoI's
+    channel of its label (channel 0 is the background's)."""
+    return mask_logits.gather(1, labels.long()[:, None, None, None].expand(
+        -1, 1, *mask_logits.shape[2:]))[:, 0]

@@ -29,9 +29,18 @@ def bbox2delta(proposals, gt, means=(0.0, 0.0, 0.0, 0.0),
     return (deltas - means) / stds
 
 
-def delta2bbox(rois, deltas, max_shape=None):
-    """rois (N, 4), deltas (N, 4K) -> boxes (N, 4K). The RPN's target means
-    and stds are 0 and 1, so deltas are used as they are."""
+def delta2bbox(rois, deltas, max_shape=None, means=None, stds=None):
+    """rois (N, 4), deltas (N, 4K) -> boxes (N, 4K). ``means`` / ``stds``
+    (4 each) denormalise the deltas first, deltas * stds + means, as the
+    R-CNN heads' targets were coded; None (the RPN's 0 and 1) uses them as
+    they are."""
+    if means is not None or stds is not None:
+        k = deltas.shape[-1] // 4
+        m = torch.tensor(tuple(means or (0.0,) * 4), dtype=torch.float32,
+                         device=deltas.device).repeat(k)
+        s = torch.tensor(tuple(stds or (1.0,) * 4), dtype=torch.float32,
+                         device=deltas.device).repeat(k)
+        deltas = deltas * s + m
     dx = deltas[..., 0::4]
     dy = deltas[..., 1::4]
     dw = deltas[..., 2::4]
@@ -64,11 +73,15 @@ def bbox_area(boxes):
 
 
 def bbox_overlaps(boxes1, boxes2):
-    """Pairwise IoU with the legacy +1 widths, (M, 4) x (N, 4) -> (M, N)."""
-    lt = torch.maximum(boxes1[..., :, None, :2], boxes2[..., None, :, :2])
-    rb = torch.minimum(boxes1[..., :, None, 2:], boxes2[..., None, :, 2:])
-    wh = (rb - lt + 1.0).clamp(min=0)
-    overlap = wh[..., 0] * wh[..., 1]
+    """Pairwise IoU with the legacy +1 widths, (..., M, 4) x (..., N, 4) ->
+    (..., M, N), one coordinate at a time (no (..., M, N, 2) temporaries)."""
+    a = boxes1[..., :, None, :]
+    b = boxes2[..., None, :, :]
+    iw = (torch.minimum(a[..., 2], b[..., 2])
+          - torch.maximum(a[..., 0], b[..., 0]) + 1.0).clamp(min=0)
+    ih = (torch.minimum(a[..., 3], b[..., 3])
+          - torch.maximum(a[..., 1], b[..., 1]) + 1.0).clamp(min=0)
+    overlap = iw * ih
     area1 = bbox_area(boxes1)[..., :, None]
     area2 = bbox_area(boxes2)[..., None, :]
     union = area1 + area2 - overlap

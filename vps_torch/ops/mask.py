@@ -1,6 +1,7 @@
-"""Mask cropping for training targets (port of vps_tpu/ops/mask.py:
-``crop_and_resize_indexed`` and ``_bilinear_2d``), plain PyTorch: one flat
-gather per corner, never materialising the gathered (R, H, W) stack."""
+"""Mask cropping for training targets and mask pasting for inference (port
+of vps_tpu/ops/mask.py: ``crop_and_resize_indexed``, ``_bilinear_2d`` and
+``paste_masks``), plain PyTorch: one flat gather per corner, never
+materialising the gathered (R, H, W) stack."""
 
 from __future__ import annotations
 
@@ -56,3 +57,45 @@ def _bilinear_2d(img, y, x):
     border clamp."""
     h, w = img.shape
     return _mix4(img.reshape(-1), 0, w, *_corners(y, x, h, w))
+
+
+def paste_masks(masks, boxes, out_hw, binarize=None):
+    """Paste per-instance mask patches into full-resolution planes (port of
+    vps_tpu/ops/mask.py: paste_masks).
+
+    masks (N, m, m) logits or probabilities; boxes (N, 4) in output
+    coordinates; out_hw (H, W). Each output pixel inside box i (rounded to
+    integers, w = max(x2 - x1 + 1, 1)) samples mask i bilinearly at the
+    matching patch coordinate, border clamped; outside the box it is 0.
+    Separable: the columns are mixed first for every patch row, then the
+    rows, which is JAX's per-pixel order of operations (x-mix of each
+    corner row, then the y-mix), without an (N, H, W) coordinate grid.
+
+    Returns (N, H, W) float32; with ``binarize`` a float, 1.0 where the
+    value is above it and 0.0 elsewhere."""
+    h, w = out_hw
+    n, m, _ = masks.shape
+    dev = masks.device
+    masks = masks.float()
+    x1 = torch.round(boxes[:, 0])
+    y1 = torch.round(boxes[:, 1])
+    bw = (torch.round(boxes[:, 2]) - x1 + 1.0).clamp(min=1.0)
+    bh = (torch.round(boxes[:, 3]) - y1 + 1.0).clamp(min=1.0)
+    ys = torch.arange(h, dtype=torch.float32, device=dev)
+    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    # image pixel centres in each patch's frame, (N, H) and (N, W)
+    my = (ys[None] - y1[:, None] + 0.5) * (m / bh[:, None]) - 0.5
+    mx = (xs[None] - x1[:, None] + 0.5) * (m / bw[:, None]) - 0.5
+    y0, x0, yh, xh, wy, wx = _corners(my, mx, m, m)
+    cols = lambda xi: masks.gather(  # noqa: E731  (N, m, W)
+        2, xi.long()[:, None, :].expand(n, m, w))
+    mixed = cols(x0) * (1 - wx[:, None, :]) + cols(xh) * wx[:, None, :]
+    rows = lambda yi: mixed.gather(  # noqa: E731  (N, H, W)
+        1, yi.long()[:, :, None].expand(n, h, w))
+    vals = rows(y0) * (1 - wy[:, :, None]) + rows(yh) * wy[:, :, None]
+    inside = (((my > -1.0) & (my < m))[:, :, None]
+              & ((mx > -1.0) & (mx < m))[:, None, :])
+    out = torch.where(inside, vals, torch.zeros_like(vals))
+    if binarize is not None:
+        out = (out > binarize).float()
+    return out

@@ -43,7 +43,7 @@ from vps_torch.models.detectors import (
     predict_video,
     random_init_,
 )
-from vps_torch.models.detectors.panoptic import DETECTORS
+from vps_torch.models.detectors.panoptic import PANOPTIC_DETECTORS
 from vps_torch.utils.numerics import describe, f32_policy
 
 STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
@@ -164,7 +164,7 @@ def main(argv=None) -> None:
                     help="clamp the semantic head's DCN offsets to +-R and "
                          "run its windowed kernel (default: exact DCN)")
     ap.add_argument("--detector", default="PanopticFuseTrack",
-                    choices=sorted(DETECTORS))
+                    choices=PANOPTIC_DETECTORS)
     args = ap.parse_args(argv)
     numerics = f32_policy()
     if not torch.cuda.is_available():
