@@ -98,6 +98,27 @@ Phases, each printing its own line of numbers:
                  outside the image. Then each of the nine types and the HTC
                  alias at tests/test_two_stage.py's tiny shapes on the card
                  against the port's CPU path ("small zoo").
+  8. zoo train -- the zoo's training at full width, the same configs with
+                 their train_cfg word for word: each detector's ``loss`` on
+                 the seeded image (12 seeded gt boxes, labels and masks of
+                 16; HTC's semantic labels at stride 8), backward and the
+                 port's Optimizer (momentum 0.9, weight decay 1e-4, clip 35,
+                 lr 0.02/16), f32, TF32 off, under train_policy: 1 warm-up +
+                 3 steps for Mask R-CNN, Cascade Mask R-CNN and HTC, 1 + 2
+                 for the other six ("zoo train ...", Fast R-CNN on the RPN's
+                 2000 proposals); prints s/step, peak memory, host syncs a
+                 step, every loss term, nonfinite_skips and the named ranges
+                 of one profiled step; fails on a non-finite term, a skipped
+                 step, a changed frozen parameter or a port kernel launched.
+                 Then the nine types and the HTC alias at the tiny shapes,
+                 one step on the card against the CPU with the same
+                 injected draws ("small zoo train": equal sampled slots,
+                 terms within rel 1e-3, gradients within
+                 SMALL_ZOO_GRAD_TOL); then "train repeatable": the
+                 FuseTrack and Mask R-CNN train steps each twice from the
+                 same state under train_policy, bitwise equal in every loss
+                 term and parameter (else the first op to differ is named),
+                 and the policy's cost a FuseTrack step.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
@@ -2151,22 +2172,49 @@ _CASCADE_STDS = ((0.1, 0.1, 0.2, 0.2), (0.05, 0.05, 0.1, 0.1),
                  (0.033, 0.033, 0.067, 0.067))
 
 
+def _zoo_train_rcnn(iou=0.5, **over):
+    """An rcnn train_cfg of the mmdetection v1.0 configs: MaxIoU at ``iou``,
+    512 RoIs sampled at 0.25 with the gt added, 28x28 mask targets."""
+    return dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=iou,
+                              neg_iou_thr=iou, min_pos_iou=iou,
+                              ignore_iof_thr=-1),
+                sampler=dict(type="RandomSampler", num=512, pos_fraction=0.25,
+                             neg_pos_ub=-1, add_gt_as_proposals=True),
+                mask_size=28, pos_weight=-1, debug=False, **over)
+
+
+# the RPN's train_cfg and its train-time proposals, word for word
+_RPN_TRAIN = dict(
+    assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.7, neg_iou_thr=0.3,
+                  min_pos_iou=0.3, ignore_iof_thr=-1),
+    sampler=dict(type="RandomSampler", num=256, pos_fraction=0.5,
+                 neg_pos_ub=-1, add_gt_as_proposals=False),
+    allowed_border=0, pos_weight=-1, debug=False)
+_RPN_PROPOSAL = dict(nms_across_levels=False, nms_pre=2000, nms_post=2000,
+                     max_num=2000, nms_thr=0.7, min_bbox_size=0)
+
+
 def zoo_configs():
-    """{name: (source config, model dict, test_cfg)}, written from the
-    mmdetection v1.0 configs named."""
+    """{name: (source config, model dict, train_cfg, test_cfg)}, written
+    from the mmdetection v1.0 configs named."""
     rcnn = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
                 max_per_img=100)
+    train = dict(rpn=_RPN_TRAIN, rpn_proposal=_RPN_PROPOSAL,
+                 rcnn=_zoo_train_rcnn())
+    cascade_train = dict(train, rcnn=[_zoo_train_rcnn(t)
+                                      for t in (0.5, 0.6, 0.7)],
+                         stage_loss_weights=[1, 0.5, 0.25])
     masked = dict(rcnn, mask_thr_binary=0.5)
     cascade_heads = [_mmdet_bbox_head(s, agnostic=True) for s in _CASCADE_STDS]
     return {
         "mask_rcnn": ("configs/mask_rcnn_r50_fpn_1x.py", dict(
             type="MaskRCNN", **_mmdet_trunk(), bbox_head=_mmdet_bbox_head(),
-            mask_roi_extractor=_MASK_ROI, mask_head=_MASK_HEAD),
+            mask_roi_extractor=_MASK_ROI, mask_head=_MASK_HEAD), train,
             dict(rpn=_RPN_TEST, rcnn=masked)),
         "cascade_mask_rcnn": ("configs/cascade_mask_rcnn_r50_fpn_1x.py", dict(
             type="CascadeRCNN", num_stages=3, **_mmdet_trunk(),
             bbox_head=cascade_heads, mask_roi_extractor=_MASK_ROI,
-            mask_head=_MASK_HEAD),
+            mask_head=_MASK_HEAD), cascade_train,
             dict(rpn=_RPN_TEST, rcnn=masked, keep_all_stages=False)),
         "htc": ("configs/htc/htc_r50_fpn_1x.py", dict(
             type="HybridTaskCascade", num_stages=3, interleaved=True,
@@ -2181,20 +2229,21 @@ def zoo_configs():
                 type="FusedSemanticHead", num_ins=5, fusion_level=1,
                 num_convs=4, in_channels=256, conv_out_channels=256,
                 num_classes=183, ignore_label=255, loss_weight=0.2)),
-            dict(rpn=_RPN_TEST, rcnn=dict(masked, score_thr=0.001),
+            cascade_train, dict(rpn=_RPN_TEST, rcnn=dict(masked, score_thr=0.001),
                  keep_all_stages=False)),
         "rpn": ("configs/rpn_r50_fpn_1x.py", dict(
             type="RPN", **{k: v for k, v in _mmdet_trunk().items()
                            if k != "bbox_roi_extractor"}),
-            dict(rpn=dict(_RPN_TEST, nms_pre=2000, nms_post=2000,
+            dict(rpn=_RPN_TRAIN), dict(rpn=dict(_RPN_TEST, nms_pre=2000, nms_post=2000,
                           max_num=2000))),
         "faster_rcnn": ("configs/faster_rcnn_r50_fpn_1x.py", dict(
             type="FasterRCNN", **_mmdet_trunk(), bbox_head=_mmdet_bbox_head()),
-            dict(rpn=_RPN_TEST, rcnn=rcnn)),
+            train, dict(rpn=_RPN_TEST, rcnn=rcnn)),
         "fast_rcnn": ("configs/fast_rcnn_r50_fpn_1x.py", dict(
             type="FastRCNN", **{k: v for k, v in _mmdet_trunk().items()
                                 if k != "rpn_head"},
-            bbox_head=_mmdet_bbox_head()), dict(rcnn=rcnn)),
+            bbox_head=_mmdet_bbox_head()),
+            dict(rcnn=_zoo_train_rcnn()), dict(rcnn=rcnn)),
         "double_head": ("configs/double_heads/dh_faster_rcnn_r50_fpn_1x.py",
                         dict(type="DoubleHeadRCNN", reg_roi_scale_factor=1.3,
                              **_mmdet_trunk(), bbox_head=_mmdet_bbox_head(
@@ -2205,7 +2254,7 @@ def zoo_configs():
                                                loss_weight=2.0),
                                  loss_bbox=dict(type="SmoothL1Loss", beta=1.0,
                                                 loss_weight=2.0))),
-                        dict(rpn=_RPN_TEST, rcnn=rcnn)),
+                        train, dict(rpn=_RPN_TEST, rcnn=rcnn)),
         "ms_rcnn": ("configs/ms_rcnn/ms_rcnn_r50_caffe_fpn_1x.py", dict(
             type="MaskScoringRCNN", **_mmdet_trunk("caffe"),
             bbox_head=_mmdet_bbox_head(), mask_roi_extractor=_MASK_ROI,
@@ -2214,6 +2263,7 @@ def zoo_configs():
                                roi_feat_size=14, in_channels=256,
                                conv_out_channels=256, fc_out_channels=1024,
                                num_classes=81)),
+            dict(train, rcnn=_zoo_train_rcnn(mask_thr_binary=0.5)),
             dict(rpn=_RPN_TEST, rcnn=masked)),
         "grid_rcnn": ("configs/grid_rcnn/grid_rcnn_gn_head_r50_fpn_2x.py", dict(
             type="GridRCNN", **_mmdet_trunk(),
@@ -2224,6 +2274,7 @@ def zoo_configs():
                            norm_cfg=dict(type="GN", num_groups=36),
                            loss_grid=dict(type="CrossEntropyLoss",
                                           use_sigmoid=True, loss_weight=15))),
+            dict(train, rcnn=_zoo_train_rcnn(pos_radius=1, max_num_grid=192)),
             dict(rpn=_RPN_TEST, rcnn=dict(score_thr=0.03,
                                           nms=dict(type="nms", iou_thr=0.3),
                                           max_per_img=100))),
@@ -2232,14 +2283,78 @@ def zoo_configs():
 
 # source keys the port (as vps_tpu) has no field for: what it does instead
 _NO_COUNTERPART = {
-    "loss_cls": "dropped: inference computes no loss",
-    "loss_bbox": "dropped: inference computes no loss",
-    "loss_mask": "dropped: inference computes no loss",
-    "loss_grid": "dropped: inference computes no loss",
-    "norm_cfg": "dropped: FrozenBatchNorm, what requires_grad=False asks for",
-    "with_reg": "dropped: vps_tpu's SharedFCBBoxHead always regresses, and "
-                "the grid votes refine the decoded boxes",
+    "norm_cfg": "dropped: FrozenBatchNorm, whose statistics never update, "
+                "what norm_eval asks for; its affine weights train in the "
+                "unfrozen stages, as vps_tpu's do, where mmdet's "
+                "requires_grad=False would hold them",
+    "with_reg": "dropped: vps_tpu's SharedFCBBoxHead always regresses and "
+                "trains loss_bbox, and the grid votes refine the decoded "
+                "boxes",
 }
+# the losses vps_tpu's loss computes, by head and config key: the port
+# computes these whatever a config's loss_* asks
+_VPS_TPU_LOSSES = {
+    ("rpn_head", "loss_cls"): dict(type="CrossEntropyLoss", use_sigmoid=True,
+                                   loss_weight=1.0),
+    ("rpn_head", "loss_bbox"): dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                                    loss_weight=1.0),
+    ("bbox_head", "loss_cls"): dict(type="CrossEntropyLoss",
+                                    use_sigmoid=False, loss_weight=1.0),
+    ("bbox_head", "loss_bbox"): dict(type="SmoothL1Loss", beta=1.0,
+                                     loss_weight=1.0),
+    ("mask_head", "loss_mask"): dict(type="CrossEntropyLoss", use_mask=True,
+                                     loss_weight=1.0),
+    ("grid_head", "loss_grid"): dict(type="CrossEntropyLoss",
+                                     use_sigmoid=True, loss_weight=15),
+}
+# train_cfg keys the port (as vps_tpu) does not read, and why the result is
+# what the config asks
+_TRAIN_NOT_READ = {
+    "ignore_iof_thr": lambda v: f"={v}: no ignore regions, none read",
+    "neg_pos_ub": lambda v: f"={v}: no bound on negatives a positive, as "
+                            f"read",
+    "add_gt_as_proposals": lambda v: (
+        "=True: the rcnn sampler always appends the gt" if v else
+        "=False: the anchors only, as the RPN's targets take them"),
+    "pos_weight": lambda v: f"={v}: positives weigh 1, as read",
+    "debug": lambda v: f"={v}: not read",
+    "nms_across_levels": lambda v: f"={v}: per-level NMS, as read",
+    "nms_post": lambda v: f"={v}: not read (each level keeps <= nms_pre "
+                          f"after its NMS)",
+    "min_bbox_size": lambda v: f"={v}: not read (0 filters nothing)",
+}
+
+
+def _loss_note(where, key, spec):
+    """What the port does with a config's loss dict: vps_tpu's fixed loss,
+    and whether that is what the config asks."""
+    fixed = _VPS_TPU_LOSSES[(where.split("[")[0], key)]
+    asked = {k: v for k, v in spec.items() if k != "type"}
+    differ = {k: (asked.get(k), fixed.get(k)) for k in set(asked) | set(fixed)
+              if k != "type" and asked.get(k) != fixed.get(k)}
+    if not differ and spec["type"] == fixed["type"]:
+        return f"dropped: vps_tpu's loss is the one asked ({spec['type']})"
+    return ("dropped: the port trains vps_tpu's loss, which has " + ", ".join(
+        f"{k}={v[1]} where this config asks {v[0]}"
+        for k, v in sorted(differ.items())))
+
+
+def _zoo_train_notes(train_cfg):
+    """The train_cfg keys no code reads, each with what the port does."""
+    notes = []
+
+    def walk(d, where):
+        for k, v in d.items():
+            if isinstance(v, dict):
+                walk(v, f"{where}.{k}")
+            elif isinstance(v, list) and v and isinstance(v[0], dict):
+                for i, x in enumerate(v):
+                    walk(x, f"{where}.{k}[{i}]")
+            elif k in _TRAIN_NOT_READ:
+                notes.append(f"{where}.{k}{_TRAIN_NOT_READ[k](v)}")
+
+    walk(train_cfg, "train_cfg")
+    return notes
 
 
 def _zoo_port_cfg(model):
@@ -2250,6 +2365,9 @@ def _zoo_port_cfg(model):
 
     def clean(d, where):
         d = dict(d)
+        for key in sorted(k for k, v in d.items()
+                          if k.startswith("loss_") and isinstance(v, dict)):
+            notes.append(f"{where}.{key}: {_loss_note(where, key, d.pop(key))}")
         for key in sorted(set(d) & set(_NO_COUNTERPART)):
             if key == "norm_cfg" and where == "grid_head":
                 d["norm_groups"] = d.pop(key)["num_groups"]
@@ -2300,10 +2418,10 @@ def _zoo_image(device, hw=ZOO_HW, pad=ZOO_PAD):
     return torch.from_numpy(img).to(device)
 
 
-def _zoo_profile(det, run, stages, label):
-    """One more image under torch.profiler: per-range kernel and host ms,
-    host syncs, the top kernels (vps_torch.profile's summary). Returns the
-    host syncs of the image."""
+def _zoo_profile(det, run, stages, label, unit="image"):
+    """One more ``unit`` (an image, or a train step) under torch.profiler:
+    per-range kernel and host ms, host syncs, the top kernels
+    (vps_torch.profile's summary). Returns the host syncs of the unit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from vps_torch.profile import _device_kernels, _summary
@@ -2319,10 +2437,10 @@ def _zoo_profile(det, run, stages, label):
     events = prof.events()
     kernels = _device_kernels(events, stages)
     syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
-    print(f"{label}: one more image under torch.profiler: wall {wall:.4f}s, "
+    print(f"{label}: one more {unit} under torch.profiler: wall {wall:.4f}s, "
           f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
-          f"{sum(kernels.values()) / (wall * 1e6):.3f}")
-    _summary(events, kernels, stages, 1, "image", f"{label}: ", top=6)
+          f"{sum(kernels.values()) / (wall * 1e6):.3f}, host syncs {syncs}")
+    _summary(events, kernels, stages, 1, unit, f"{label}: ", top=6)
     return syncs
 
 
@@ -2377,7 +2495,7 @@ def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     from vps_torch.models.detectors import build_detector, random_init_
     from vps_torch.ops.mask import paste_masks
 
-    source, model, test_cfg = zoo_configs()[name]
+    source, model, _, test_cfg = zoo_configs()[name]
     cfg, notes = _zoo_port_cfg(model)
     notes += _zoo_test_notes(test_cfg)
     t0 = time.perf_counter()
@@ -2583,13 +2701,481 @@ def phase_small_zoo(device="cuda"):
                                  f"and cpu")
 
 
+# ---------------------------------------------------------------------------
+# The R-CNN zoo's training at full width, the tiny zoo's training card vs
+# CPU, and repeatable train steps under train_policy
+# ---------------------------------------------------------------------------
+
+ZOO_TRAIN_GT = 16  # gt capacity of a zoo train sample; 12 boxes valid
+ZOO_TRAIN_THINGS = 12
+ZOO_LR = 0.02 / 16  # mmdet v1's lr 0.02 for 16 images, for one image
+# 1 warm-up + 3 timed steps for the first three, 1 + 2 for the rest; Fast
+# R-CNN takes the RPN's proposals (the rpn run comes first)
+ZOO_TRAIN_LONG = ("mask_rcnn", "cascade_mask_rcnn", "htc")
+ZOO_TRAIN_OTHERS = ("rpn", "fast_rcnn", "faster_rcnn", "double_head",
+                    "ms_rcnn", "grid_rcnn")
+ZOO_TRAIN_STAGES = ("backbone_fpn", "rpn", "semantic_head", "proposal_targets",
+                    "bbox_head", "mask_head", "grid")
+
+
+def zoo_train_sample(rng, hw=ZOO_HW, pad=ZOO_PAD, things=ZOO_TRAIN_THINGS,
+                     max_gt=ZOO_TRAIN_GT):
+    """One seeded zoo training sample's gt on the padded canvas: ``things``
+    ellipses in random boxes inside ``hw`` (labels 1..80; a later one
+    occludes earlier ones, each mask keeping its visible pixels), padded to
+    ``max_gt`` with gt_valid; and HTC's semantic labels at stride 8 (183
+    classes in random blocks, 255 on the border and the padding)."""
+    h, w = hw
+    ys, xs = np.mgrid[0:pad[0], 0:pad[1]]
+    boxes = np.zeros((max_gt, 4), np.float32)
+    labels = np.zeros((max_gt,), np.int32)
+    masks = np.zeros((max_gt,) + tuple(pad), np.uint8)
+    for i in range(things):
+        bw, bh = rng.randint(w // 20, w // 3), rng.randint(h // 20, h // 3)
+        x1, y1 = rng.randint(0, w - bw), rng.randint(0, h - bh)
+        cx, cy = x1 + (bw - 1) / 2, y1 + (bh - 1) / 2
+        inside = ((xs - cx) / (bw / 2)) ** 2 + ((ys - cy) / (bh / 2)) ** 2 <= 1
+        masks[:i][:, inside] = 0
+        masks[i][inside] = 1
+        labels[i] = rng.randint(1, 81)
+        boxes[i] = (x1, y1, x1 + bw - 1, y1 + bh - 1)
+    sh, sw = pad[0] // 8, pad[1] // 8
+    blocks = rng.randint(0, 183, (sh // 10 + 1, sw // 12 + 1))
+    seg = np.kron(blocks, np.ones((10, 12), np.int64))[:sh, :sw]
+    seg[0], seg[:, 0] = 255, 255
+    seg[h // 8:], seg[:, w // 8:] = 255, 255
+    return dict(gt_bboxes=boxes, gt_labels=labels,
+                gt_valid=np.arange(max_gt) < things, gt_masks=masks,
+                gt_semantic_seg=seg[None].astype(np.int32))
+
+
+def _zoo_train_det(name, device):
+    """``name``'s detector of zoo_configs with its train_cfg, seeded random
+    weights; returns it, the source config and the notes on keys without a
+    counterpart."""
+    from vps_torch.models.detectors import build_detector, random_init_
+
+    source, model, train_cfg, test_cfg = zoo_configs()[name]
+    cfg, notes = _zoo_port_cfg(model)
+    det = random_init_(build_detector(cfg, train_cfg=train_cfg,
+                                      test_cfg=test_cfg, device=device),
+                       seed=SEED)
+    return det, source, notes + _zoo_train_notes(train_cfg)
+
+
+def _zoo_train_args(det, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD):
+    """``det.loss``'s arguments on the seeded image and gt: the masks only
+    with a mask head, the semantic labels only for HTC, the labels not for
+    the RPN, ``proposals`` (boxes, valid) for a detector without an RPN."""
+    import torch
+
+    sample = zoo_train_sample(np.random.RandomState(SEED + 14), hw, pad)
+    args = {k: torch.as_tensor(v, device=device) for k, v in sample.items()}
+    args["img"] = _zoo_image(device, hw, pad)
+    if getattr(det, "mask_head", None) is None:
+        args.pop("gt_masks")
+    if getattr(det, "semantic_head", None) is None:
+        args.pop("gt_semantic_seg")
+    if not hasattr(det, "bbox_head"):  # the RPN detector
+        args.pop("gt_labels")
+    elif det.rpn_head is None:
+        args["proposals"], args["proposal_valid"] = proposals
+    return args
+
+
+def _zoo_optimizer(det):
+    """The port's Optimizer as the mmdet v1 configs set SGD: momentum 0.9,
+    weight decay 1e-4, clip 35, the lr of one image."""
+    from vps_torch.train.optim import build_optimizer
+
+    return build_optimizer(det, lambda step: np.float32(ZOO_LR), momentum=0.9,
+                           weight_decay=1e-4, grad_clip=35.0)[0]
+
+
+def _zoo_train_step(det, args, opt, gen):
+    """One SGD step: ``loss``, the backward of the terms named loss, the
+    update. Returns the loss dict."""
+    losses = det.loss(**args, generator=gen)
+    sum(v for k, v in losses.items() if "loss" in k).backward()
+    opt.step()
+    return losses
+
+
+def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
+                   steps=None):
+    """Train ``name`` at full width on the seeded image and gt under
+    train_policy: 1 warm-up and ``steps`` - 1 timed steps (host clock,
+    each ending in a synchronize), then one profiled step. Returns (launch
+    counts of the steps, the detector)."""
+    import torch
+    from vps_torch.utils.numerics import train_policy
+
+    steps = steps or (4 if name in ZOO_TRAIN_LONG else 3)
+    t0 = time.perf_counter()
+    det, source, notes = _zoo_train_det(name, device)
+    args = _zoo_train_args(det, device, proposals, hw, pad)
+    opt = _zoo_optimizer(det)
+    before = {n: p.detach().clone() for n, p in det.named_parameters()}
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    label = f"zoo train {name}"
+    hist, times = [], []
+    with train_policy():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses = _zoo_train_step(det, args, opt, gen)
+            _sync(device)
+            times.append(time.perf_counter() - t)
+            hist.append({k: float(v.detach()) for k, v in losses.items()})
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        syncs = _zoo_profile(det, lambda: _zoo_train_step(det, args, opt, gen),
+                             ZOO_TRAIN_STAGES, label, unit="step")
+    trainable = {n for n, p in det.named_parameters() if p.requires_grad}
+    moved = {n for n, p in det.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    bad = sorted({k for r in hist for k, v in r.items() if not np.isfinite(v)})
+    timed = times[1:]
+    print(f"{label}: {type(det).__name__} from mmdetection v1.0 {source}, "
+          f"R-50 FPN, 81 classes, {hw[0]}x{hw[1]} padded to {pad[0]}x{pad[1]}, "
+          f"gt {ZOO_TRAIN_THINGS} of {ZOO_TRAIN_GT}, f32 TF32 off, "
+          f"train_policy, lr {ZOO_LR:g}, init {init_s:.1f}s, first step "
+          f"{times[0]:.3f}s, {statistics.mean(timed):.4f} s/step over "
+          f"{len(timed)} steps (min {min(timed):.4f}, max {max(timed):.4f}), "
+          f"peak mem {peak / 2**30:.2f} GiB, host syncs a step {syncs}, "
+          f"nonfinite_skips {opt.total_notfinite}, launches {launches}, "
+          f"trainable changed {len(moved & trainable)}/{len(trainable)}, "
+          f"frozen changed {len(moved - trainable)}/"
+          f"{len(before) - len(trainable)}; card: {smi}")
+    print(f"{label}: step 1 {_losses_line(hist[0])}")
+    print(f"{label}: step {len(hist)} {_losses_line(hist[-1])}")
+    print(f"{label}: source keys without a counterpart: " + "; ".join(notes))
+    if bad:
+        raise AssertionError(f"{label}: non-finite {bad}")
+    if opt.total_notfinite or opt.count != steps + 1:
+        raise AssertionError(f"{label}: {opt.total_notfinite} steps skipped, "
+                             f"{opt.count} applied")
+    if moved - trainable or not moved & trainable:
+        raise AssertionError(f"{label}: frozen changed "
+                             f"{sorted(moved - trainable)[:5]}, trainable "
+                             f"changed {len(moved & trainable)}")
+    if on_card and launches != _want():
+        raise AssertionError(f"{label}: port kernel launches {launches}: the "
+                             f"zoo's training runs none of them")
+    return launches, det
+
+
+def phase_zoo_train(smi, names, device="cuda", **kw):
+    """Each named detector of zoo_configs trained at full width
+    (_zoo_train_run); Fast R-CNN on the proposals of the RPN detector just
+    trained (predict on the same image). Returns the launch counts by
+    path."""
+    paths, props = {}, None
+    for name in names:
+        launches, det = _zoo_train_run(
+            name, smi, device, props if name == "fast_rcnn" else None, **kw)
+        if name == "rpn":
+            hw, pad = kw.get("hw", ZOO_HW), kw.get("pad", ZOO_PAD)
+            out = det.predict(_zoo_image(device, hw, pad))
+            props = (out["proposals"], out["proposal_valid"])
+        paths[f"zoo train {name}"] = launches
+        del det
+    return paths
+
+
+# tests/test_two_stage.py's TRAIN_CFG and tests/test_cascade.py's two-stage
+# train config, for the tiny zoo
+_TINY_RPN_TRAIN = dict(
+    assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.7, neg_iou_thr=0.3,
+                  min_pos_iou=0.3),
+    sampler=dict(type="RandomSampler", num=32, pos_fraction=0.5),
+    allowed_border=0)
+
+
+def _tiny_rcnn_train(iou=0.5, **over):
+    return dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=iou,
+                              neg_iou_thr=iou, min_pos_iou=iou),
+                sampler=dict(type="RandomSampler", num=16, pos_fraction=0.25,
+                             add_gt_as_proposals=True),
+                mask_size=28, pos_weight=-1, **over)
+
+
+def _tiny_zoo_train_cfg(kind):
+    if kind == "RPN":
+        return dict(rpn=_TINY_RPN_TRAIN)
+    base = dict(rpn=_TINY_RPN_TRAIN,
+                rpn_proposal=dict(nms_pre=32, nms_thr=0.7, max_num=16))
+    if kind in ("CascadeRCNN", "HybridTaskCascade", "HTC"):
+        return dict(base, rcnn=[_tiny_rcnn_train(0.5), _tiny_rcnn_train(0.6)],
+                    stage_loss_weights=[1.0, 0.5])
+    return dict(base, rcnn=_tiny_rcnn_train(mask_thr_binary=0.5, pos_radius=1,
+                                            max_num_grid=192))
+
+
+# the card's gradients against the CPU's, each tensor within this share of
+# its largest CPU gradient plus 1e-6 of the largest over all tensors: f32
+# sums in other orders through the tiny nets (~1e-6 measured between JAX
+# and the port on the CPU), so a tenth of a percent is a fault
+SMALL_ZOO_GRAD_TOL = 1e-3
+
+
+def phase_small_zoo_train(device="cuda"):
+    """Each zoo type (and the HTC alias, without the semantic head or the
+    flow, not interleaved) trained one step at tests/test_two_stage.py's
+    tiny shapes on one seeded 64x64 image and gt: the card against the
+    port's CPU path, the same weights and the same injected draws (each
+    sampler call's (2, n) priorities and Grid's jitter from seeded numpy),
+    both under train_policy. The sampled slots must be equal, every loss
+    term within rel 1e-3, every parameter's gradient of the total within
+    SMALL_ZOO_GRAD_TOL."""
+    import torch
+    import vps_torch.core.sampler as tsampler
+    import vps_torch.core.targets as ttargets
+    import vps_torch.models.detectors.two_stage as two_stage
+    from vps_torch.models.detectors import build_detector, random_init_
+    from vps_torch.utils.numerics import train_policy
+
+    test_cfg = dict(rpn=dict(nms_pre=16, nms_thr=0.7, max_num=8),
+                    rcnn=dict(score_thr=0.05, nms=dict(type="nms",
+                                                       iou_thr=0.5),
+                              max_per_img=6))
+    rng = np.random.RandomState(SEED + 13)
+    img = rng.randn(1, 64, 64, 3).astype(np.float32)
+    boxes = np.asarray([[4, 4, 28, 30], [30, 8, 60, 40], [10, 34, 40, 60],
+                        [0, 0, 0, 0]], np.float32)
+    masks = np.zeros((4, 64, 64), np.float32)
+    for i, b in enumerate(boxes.astype(int)):
+        masks[i, b[1]:b[3], b[0]:b[2]] = 1
+    sem = rng.randint(0, 7, (1, 8, 8)).astype(np.int32)
+    sem[:, 0] = 255
+    gt = dict(img=img, gt_bboxes=boxes,
+              gt_labels=np.asarray([1, 2, 4, 0], np.int32),
+              gt_valid=np.asarray([1, 1, 1, 0], bool), gt_masks=masks,
+              gt_semantic_seg=sem,
+              proposals=np.asarray([[2.0, 2.0, 30.0, 32.0],
+                                    [28.0, 6.0, 62.0, 42.0],
+                                    [8.0, 30.0, 44.0, 62.0],
+                                    [0.0, 0.0, 16.0, 16.0]] * 4, np.float32),
+              proposal_valid=np.arange(16) < 14)
+    uniform, sample = tsampler.uniform, ttargets.random_sample
+    jitter = two_stage.jitter_offsets
+    for kind, cfg in _tiny_zoo_cfgs().items():
+        cfg = dict(cfg, type=kind)
+        if kind == "HTC":
+            cfg["interleaved"] = False
+        train_cfg = _tiny_zoo_train_cfg(kind)
+        cpu = random_init_(build_detector(cfg, train_cfg=train_cfg,
+                                          test_cfg=test_cfg, device="cpu"),
+                           seed=SEED + 1)
+        gpu = build_detector(cfg, train_cfg=train_cfg, test_cfg=test_cfg,
+                             device=device)
+        gpu.load_state_dict(cpu.state_dict(), strict=True)
+        runs = {}
+        for dev, det in (("cpu", cpu), ("card", gpu)):
+            calls, sel = [0], []
+
+            def feed(gen, shape, device):
+                calls[0] += 1
+                r = np.random.RandomState(100 + calls[0]).rand(*shape)
+                return torch.from_numpy(r.astype(np.float32)).to(device)
+
+            def recording(*a, **k):
+                res = sample(*a, **k)
+                sel.append((res.inds.cpu(), res.valid.cpu()))
+                return res
+
+            def jit(gen, shape, device, amp):
+                r = np.random.RandomState(7).uniform(-amp, amp, shape)
+                return torch.from_numpy(r.astype(np.float32)).to(device)
+
+            args = {k: torch.from_numpy(v).to(det.device)
+                    for k, v in gt.items()}
+            if getattr(det, "mask_head", None) is None:
+                args.pop("gt_masks")
+            if getattr(det, "semantic_head", None) is None:
+                args.pop("gt_semantic_seg")
+            if kind == "RPN":
+                args.pop("gt_labels")
+            if kind != "FastRCNN":
+                args.pop("proposals")
+                args.pop("proposal_valid")
+            tsampler.uniform, ttargets.random_sample = feed, recording
+            two_stage.jitter_offsets = jit
+            try:
+                with train_policy():
+                    losses = det.loss(**args)
+                    sum(v for k, v in losses.items() if "loss" in k).backward()
+            finally:
+                tsampler.uniform, ttargets.random_sample = uniform, sample
+                two_stage.jitter_offsets = jitter
+            runs[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                         {n: p.grad.cpu() for n, p in det.named_parameters()
+                          if p.grad is not None}, sel)
+        (want, gw, ws), (got, gg, gs) = runs["cpu"], runs["card"]
+        same_sel = len(ws) == len(gs) and all(
+            torch.equal(a[1], b[1]) and torch.equal(a[0][a[1]], b[0][b[1]])
+            for a, b in zip(ws, gs))
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items()
+                  if k in got)
+        gmax = max(float(g.abs().max()) for g in gw.values())
+        gerr = max((float((gg[n] - g).abs().max())
+                    / (float(g.abs().max()) + 1e-6 * gmax / SMALL_ZOO_GRAD_TOL))
+                   for n, g in gw.items() if n in gg)
+        print(f"small zoo train: {kind} card vs cpu: {len(want)} terms, "
+              f"worst rel err {rel:.2e} (tol 1e-3), sampler calls {len(ws)} "
+              f"{'equal' if same_sel else 'DIFFER'}, {len(gw)} gradients, "
+              f"worst err {gerr:.2e} of the tensor's largest "
+              f"(tol {SMALL_ZOO_GRAD_TOL:g})")
+        if (set(got) != set(want) or not same_sel or rel > 1e-3
+                or set(gg) != set(gw) or gerr > SMALL_ZOO_GRAD_TOL):
+            raise AssertionError(f"small zoo train {kind} disagrees between "
+                                 f"card and cpu")
+
+
+def _repeat_steps(label, det, step, make_opt, seed=SEED):
+    """Two train steps of ``det`` from the same weights, optimizer state
+    (after one warm-up step: momentum set) and generator seed, under
+    train_policy, compared bit for bit: every loss term and every
+    parameter after the update. Where they part, the first module whose
+    output differs in two forwards (every module hooked), else the first
+    parameter whose gradient differs; then fails. ``step(opt, gen)`` runs
+    one step and returns the loss dict. Returns the optimizer."""
+    import copy
+
+    import torch
+    from vps_torch.utils.numerics import train_policy
+
+    dev = det.device
+    opt = make_opt()
+    with train_policy():
+        step(opt, torch.Generator(device=dev).manual_seed(seed))
+    w0 = {k: v.clone() for k, v in det.state_dict().items()}
+    o0 = copy.deepcopy(opt.state_dict())
+    runs = []
+    for _ in range(2):
+        det.load_state_dict(w0)
+        opt.load_state_dict(copy.deepcopy(o0))
+        with train_policy():
+            losses = step(opt, torch.Generator(device=dev).manual_seed(seed + 1))
+        runs.append(({k: v.detach().clone() for k, v in losses.items()},
+                     {n: p.detach().clone() for n, p in det.named_parameters()}))
+    (l0, p0), (l1, p1) = runs
+    terms = [k for k in l0 if not torch.equal(l0[k], l1[k])]
+    params = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+    print(f"train repeatable: {label}: two steps from the same weights, "
+          f"optimizer state and generator seed under train_policy: loss terms "
+          f"{len(l0) - len(terms)} of {len(l0)} bitwise equal, parameters "
+          f"after the update {len(p0) - len(params)} of {len(p0)} bitwise "
+          f"equal")
+    if not terms and not params:
+        return opt
+    # where they part: every module's output in two forwards, then the
+    # gradients
+    modules = list(det.named_modules())[1:]
+    seen = []
+    for _ in range(2):
+        det.load_state_dict(w0)
+        opt.load_state_dict(copy.deepcopy(o0))
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        with train_policy():
+            pts, _ = _points(det, lambda record: step(opt, gen), modules)
+        seen.append(pts)
+    first = next((k for k in seen[0] if seen[1].get(k) != seen[0][k]), None)
+    print(f"train repeatable: {label}: first point to differ in the forward: "
+          f"{first}; loss terms that differ {terms[:5]}; parameters "
+          f"{params[:5]}")
+    raise AssertionError(f"train repeatable: {label} is not bitwise "
+                         f"repeatable under train_policy")
+
+
+def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
+                           zoo_hw=ZOO_HW, zoo_pad=ZOO_PAD, cost_steps=2):
+    """The FuseTrack train step (the "train" path's model, sample and
+    fusetrack_train_cfg) and Mask R-CNN's (the "zoo train" path's), each run
+    twice from the same state under train_policy and compared bit for bit
+    (_repeat_steps); then the policy's cost on the FuseTrack step: s/step
+    in blocks of ``cost_steps`` steps without, with, with, without it (host
+    clock, each step ending in a synchronize)."""
+    import contextlib
+
+    import torch
+    from vps_torch import zoo
+    from vps_torch.models.detectors import PanopticFuseTrack, random_init_
+    from vps_torch.train.step import make_loss_fn
+    from vps_torch.utils.numerics import train_policy
+
+    cfg = zoo.f32_compute_overrides(zoo.fusetrack_model_cfg(depth))
+    cfg.pop("type")
+    det = random_init_(PanopticFuseTrack(
+        train_cfg=zoo.fusetrack_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(),
+        device=device, **cfg), seed=SEED)
+    batch = SampleLoader(synth_sample(np.random.RandomState(SEED + 4), h, w,
+                                      MAX_GT), device, 1).batch
+    loss_fn = make_loss_fn(det)
+
+    def fusetrack_step(opt, gen):
+        total, log_vars = loss_fn(batch, gen)
+        total.backward()
+        opt.step()
+        return log_vars
+
+    def fusetrack_opt():
+        from vps_torch.train.optim import build_optimizer
+
+        return build_optimizer(det, lambda step: np.float32(0.005))[0]
+
+    opt = _repeat_steps(f"PanopticFuseTrack R-{depth} f32 {h}x{w}", det,
+                        fusetrack_step, fusetrack_opt)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def timed(n, policy):
+        out = []
+        for _ in range(n):
+            with train_policy() if policy else contextlib.nullcontext():
+                _sync(device)
+                t = time.perf_counter()
+                fusetrack_step(opt, gen)
+                _sync(device)
+            out.append(time.perf_counter() - t)
+        return out
+
+    timed(1, False)
+    timed(1, True)
+    off = timed(cost_steps, False)
+    on = timed(cost_steps, True) + timed(cost_steps, True)
+    off += timed(cost_steps, False)
+    print(f"train repeatable: the policy's cost on the FuseTrack train step "
+          f"(R-{depth} f32 {h}x{w}, steps in blocks without, with, with, "
+          f"without): {statistics.mean(off):.4f} s/step without (min "
+          f"{min(off):.4f}, max {max(off):.4f}), {statistics.mean(on):.4f} "
+          f"s/step under train_policy (min {min(on):.4f}, max {max(on):.4f}), "
+          f"{statistics.mean(on) / statistics.mean(off):.3f}x; card: {smi}")
+    del det, opt, batch
+
+    zdet, _, _ = _zoo_train_det("mask_rcnn", device)
+    args = _zoo_train_args(zdet, device, hw=zoo_hw, pad=zoo_pad)
+    _repeat_steps(f"mask_rcnn R-50 FPN {zoo_pad[0]}x{zoo_pad[1]}", zdet,
+                  lambda o, g: _zoo_train_step(zdet, args, o, g),
+                  lambda: _zoo_optimizer(zdet))
+
+
 def main() -> int:
     import torch
 
     # fails outside a checkout of the repo
-    from vps_torch.utils.numerics import describe, f32_policy
+    from vps_torch.utils.numerics import (
+        describe,
+        deterministic_cublas,
+        f32_policy,
+    )
 
     numerics = f32_policy()
+    deterministic_cublas()  # before CUDA: the train phases run train_policy
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -2617,6 +3203,9 @@ def main() -> int:
     paths.update(phase_zoo(smi, ("mask_rcnn", "cascade_mask_rcnn", "htc")))
     paths.update({f"zoo {k}": v for k, v in phase_zoo(smi, ZOO_OTHERS).items()})
     phase_small_zoo()
+    paths.update(phase_zoo_train(smi, ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
+    phase_small_zoo_train()
+    phase_train_repeatable(smi)
     paths.update(phase_dataset(smi, numerics))
     paths.update(phase_viper(smi))
     # launches: the run of the kernel's own path; by path: every path's run

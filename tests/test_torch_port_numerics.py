@@ -79,9 +79,9 @@ def _dotted(node):
 def test_only_the_policy_sets_flags():
     """Static check over vps_torch and chip_smoke.py: the only functions
     that assign a ``torch.backends`` flag are ``utils/numerics.py``'s
-    policies, ``f32_policy`` and ``inference_policy``, and no module calls
-    one (or any ``torch.set_*``) at import time, so importing the package
-    changes no global flag."""
+    policies, ``f32_policy``, ``inference_policy`` and ``train_policy``, and
+    no module calls one (or any ``torch.set_*``) at import time, so
+    importing the package changes no global flag."""
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     setters = []
     for path in files:
@@ -102,10 +102,12 @@ def test_only_the_policy_sets_flags():
             for node in ast.walk(stmt):
                 if isinstance(node, ast.Call):
                     name = _dotted(node.func)
-                    assert not name.endswith(("f32_policy",
-                                              "inference_policy")) and not (
+                    assert not name.endswith((
+                        "f32_policy", "inference_policy", "train_policy",
+                        "deterministic_cublas")) and not (
                         name.startswith("torch.set_")), (path, name)
     # each assignment is seen from the module and from its function
     assert set(setters) == {("vps_torch/utils/numerics.py", None),
                             ("vps_torch/utils/numerics.py", "f32_policy"),
-                            ("vps_torch/utils/numerics.py", "inference_policy")}
+                            ("vps_torch/utils/numerics.py", "inference_policy"),
+                            ("vps_torch/utils/numerics.py", "train_policy")}

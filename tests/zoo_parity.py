@@ -1,5 +1,7 @@
 """Shared pieces of the R-CNN zoo's parity tests
-(``tests/test_torch_port_zoo_*.py``): the tiny configs of
+(``tests/test_torch_port_zoo_*.py``; for training ``train_pair``, the two
+stacks' losses, sampled sets and gradients on the same draws, and its bar
+``assert_train_match``): the tiny configs of
 tests/test_two_stage.py and tests/test_cascade.py, seeded JAX variables
 (``jax.eval_shape`` of ``init``, filled from numpy; no ``init`` is run),
 one jitted JAX ``predict`` a detector, the port built through
@@ -142,3 +144,178 @@ def assert_dets_match(want, got, box_tol=BOX_TOL, min_valid=3):
         assert got[k].shape == want[k].shape, k
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=LOGIT_TOL,
                                    err_msg=k)
+
+
+# -- training -----------------------------------------------------------------
+
+# loss terms that no sampled selection reaches (the anchors' targets are
+# drawn too, but both stacks get the same draws and the same anchors)
+SELECTION_FREE = ("loss_rpn_cls", "loss_rpn_bbox", "loss_semantic_seg")
+
+
+class Draws:
+    """The samplers' priorities: each call (2, n) uniforms from its own
+    seeded RandomState, in call order; one instance a stack, both from the
+    same seed, feed the two the same draws."""
+
+    def __init__(self, seed):
+        self.seed, self.calls = seed, 0
+
+    def __call__(self, n):
+        r = np.random.RandomState(1000 * self.seed + self.calls).rand(2, n)
+        self.calls += 1
+        return r.astype(np.float32)
+
+
+def gt_sample(masks=True, semantic=False):
+    """tests/test_two_stage.py's gt (3 valid boxes of 4, box masks) as
+    numpy, with the semantic labels HTC reads at stride 8 (seeded, 7
+    classes, a border of 255) when asked."""
+    from test_two_stage import gt
+
+    gtb, gtl, gtv, gtm = (np.asarray(a) for a in gt())
+    out = dict(gt_bboxes=gtb, gt_labels=gtl, gt_valid=gtv)
+    if masks:
+        out["gt_masks"] = gtm
+    if semantic:
+        sem = np.random.RandomState(5).randint(0, 7, (1, 8, 8)).astype(np.int32)
+        sem[:, 0] = 255
+        sem[:, :, -1] = 255
+        out["gt_semantic_seg"] = sem
+    return out
+
+
+def train_pair(kind, cfg, train_cfg, sample, seed=0, jitter=None,
+               port_kind=None):
+    """vps_tpu's ``kind`` and the port's ``loss`` on the same seeded weights,
+    the image IMG and ``sample`` (numpy gt, and proposals for FastRCNN),
+    the same sampler draws (``Draws``: JAX's ``random_sample`` and the
+    port's ``uniform`` replaced) and, for Grid R-CNN, the same jitter
+    (``jitter`` (n, 4): JAX's ``jax.random.uniform`` and the port's
+    ``jitter_offsets`` replaced while each runs). JAX's side is one jitted
+    value_and_grad of the total (the terms whose key holds "loss"); the
+    port's is ``loss`` and one backward. Returns a dict: ``jl`` / ``tl``
+    the terms, ``jg`` / ``tg`` the gradients by the port's parameter names
+    (the port's None where a parameter got none), ``jsel`` / ``tsel`` each
+    sampler call's (inds, valid), in order, and ``port``."""
+    import pytest
+
+    import vps_tpu.core.targets as jtargets
+    from vps_tpu.core.sampler import _sample_by_priority as j_by_priority
+
+    import vps_torch.core.sampler as tsampler
+    import vps_torch.core.targets as ttargets
+    import vps_torch.models.detectors.two_stage as ttwo_stage
+
+    jdet = JDETECTORS.get(kind)(train_cfg=train_cfg, test_cfg=TEST_CFG, **cfg)
+    args = dict(sample, img=np.asarray(IMG))
+    jargs = {k: jnp.asarray(v) for k, v in args.items()}
+    shapes = jax.eval_shape(lambda: jdet.init(
+        {"params": jax.random.PRNGKey(0), "sampler": jax.random.PRNGKey(1)},
+        **jargs, method=jdet.loss))
+    rng = np.random.default_rng(seed)
+    variables = {k: fill(v, rng) for k, v in shapes.items()}
+    params, stats = variables["params"], variables.get("batch_stats")
+
+    jdraws, tdraws = Draws(seed), Draws(seed)
+    jsel, tsel = [], []
+
+    def j_random_sample(key, gi, num, pos_fraction):
+        r = jdraws(gi.shape[0])
+        res = j_by_priority(jnp.asarray(r[0]), jnp.asarray(r[1]), gi > 0,
+                            gi == 0, num, int(num * pos_fraction))
+        slot = len(jsel)
+        jsel.append(None)
+
+        def record(inds, valid):
+            jsel[slot] = (np.asarray(inds), np.asarray(valid))
+
+        jax.debug.callback(record, res.inds, res.valid)
+        return res
+
+    t_random_sample = ttargets.random_sample
+
+    def t_recording(generator, gi, num, pos_fraction):
+        res = t_random_sample(generator, gi, num, pos_fraction)
+        tsel.append((res.inds.numpy(), res.valid.numpy()))
+        return res
+
+    def j_uniform(key, shape, dtype=jnp.float32, minval=0.0, maxval=1.0):
+        assert tuple(shape) == jitter.shape and minval == -0.15
+        return jnp.asarray(jitter)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jtargets, "random_sample", j_random_sample)
+        if jitter is not None:
+            mp.setattr(jax.random, "uniform", j_uniform)
+
+        def f(p):
+            v = {"params": p}
+            if stats is not None:
+                v["batch_stats"] = stats
+            losses = jdet.apply(v, **jargs, method=jdet.loss,
+                                rngs={"sampler": jax.random.PRNGKey(7)})
+            return sum(x for k, x in losses.items() if "loss" in k), losses
+
+        (_, jl), jg = jax.jit(jax.value_and_grad(f, has_aux=True))(params)
+        jl = {k: float(v) for k, v in jl.items()}
+
+    port = build_detector(dict(cfg, type=port_kind or kind),
+                          train_cfg=train_cfg, test_cfg=TEST_CFG, device="cpu")
+    port.load_state_dict(state_dict_from_jax(params, stats), strict=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tsampler, "uniform", lambda gen, shape, device:
+                   torch.from_numpy(tdraws(shape[1])))
+        mp.setattr(ttargets, "random_sample", t_recording)
+        if jitter is not None:
+            mp.setattr(ttwo_stage, "jitter_offsets",
+                       lambda gen, shape, device, amp: torch.from_numpy(
+                           np.asarray(jitter)))
+        losses = port.loss(**{k: torch.from_numpy(np.asarray(v))
+                              for k, v in args.items()})
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+    return dict(jl=jl, tl={k: float(v.detach()) for k, v in losses.items()},
+                jg={k: v.numpy() for k, v in state_dict_from_jax(
+                    jax.tree.map(np.asarray, jg)).items()},
+                tg={n: None if p.grad is None else p.grad.numpy()
+                    for n, p in port.named_parameters()},
+                jsel=jsel, tsel=tsel, port=port)
+
+
+# the gradient bar: each parameter's gradient within GRAD_TOL of its
+# tensor's largest JAX gradient, plus 1e-6 of the largest over all tensors
+# (f32 sums in other orders; measured <= 1e-5 of the tensor's largest on
+# every detector here)
+GRAD_TOL = 1e-4
+
+
+def assert_train_match(r, keys, min_sampled=2):
+    """The same loss keys (``keys``); every term finite and within rel 1e-4
+    (SELECTION_FREE) or 1e-3 (after a sampled selection) of JAX's; every
+    sampler call with equal slots and validity, at least ``min_sampled``
+    calls; each parameter's gradient of the total within GRAD_TOL (a
+    parameter the port gives none has none in JAX either)."""
+    import pytest
+
+    jl, tl = r["jl"], r["tl"]
+    assert set(tl) == set(jl) == set(keys), (sorted(tl), sorted(jl))
+    for k, v in jl.items():
+        rel = 1e-4 if k in SELECTION_FREE else 1e-3
+        assert np.isfinite(tl[k]), k
+        assert tl[k] == pytest.approx(v, rel=rel, abs=1e-6), (k, tl[k], v)
+    assert len(r["jsel"]) == len(r["tsel"]) >= min_sampled
+    for (ji, jv), (ti, tv) in zip(r["jsel"], r["tsel"]):
+        np.testing.assert_array_equal(tv, jv)
+        np.testing.assert_array_equal(ti[tv], ji[jv])
+    jg, tg = r["jg"], r["tg"]
+    gmax = max(np.abs(v).max() for v in jg.values())
+    reached = 0
+    for name, g in tg.items():
+        ref = jg[name]
+        if g is None:
+            assert not ref.any(), name
+            continue
+        err = np.abs(g - ref).max()
+        assert err <= GRAD_TOL * np.abs(ref).max() + 1e-6 * gmax, (name, err)
+        reached += 1
+    assert reached > 0.9 * len(tg), (reached, len(tg))

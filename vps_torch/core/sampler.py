@@ -1,13 +1,16 @@
 """Pos/neg samplers (port of vps_tpu/core/sampler.py: ``SampleResult``,
-``_sample_by_priority``, ``random_sample`` and ``ohem_sample``), static
-shape: up to
-num * pos_fraction positives, negatives fill the rest, positives first so
-the heads can slice the positive prefix.
+``_sample_by_priority``, ``random_sample``, ``pseudo_sample``,
+``ohem_sample``, ``instance_balanced_sample``, ``iou_balanced_neg_sample``
+and ``combined_sample``), static shape: up to num * pos_fraction
+positives, negatives fill the rest, positives first so the heads can slice
+the positive prefix.
 
 Draws come from an explicit ``torch.Generator`` through ``uniform``, the one
 place every random number of the sampler is made (tests replace it to feed
-the port and the JAX package the same priorities). The draws are not JAX's:
-``jax.random`` cannot be reproduced.
+the port and the JAX package the same priorities). Each random sampler
+draws once, (2, N): row 0 the positives' priorities, row 1 the negatives',
+JAX's rp and rn. The draws are not JAX's: ``jax.random`` cannot be
+reproduced.
 """
 
 from __future__ import annotations
@@ -60,15 +63,39 @@ def _sample_by_priority(pos_prio, neg_prio, is_pos, is_neg, num: int,
                         (valid & ~pos_mask).sum())
 
 
+def _draws(generator, assigned_gt_inds):
+    """(rp, rn): the positives' and the negatives' uniform priorities."""
+    r = uniform(generator, (2, assigned_gt_inds.shape[0]),
+                assigned_gt_inds.device)
+    return r[0], r[1]
+
+
+def _round_robin(group, members, r):
+    """Priority of each candidate: how many members of its group have a
+    smaller draw, plus its draw x 0.999, so each group gives its best slot
+    before any gives a second (ties in the rank broken by the draw)."""
+    same = (group[:, None] == group[None, :]) & members[None, :]
+    rank = (same & (r[None, :] < r[:, None])).sum(1)
+    return rank.float() + r * 0.999
+
+
 def random_sample(generator, assigned_gt_inds, num: int,
                   pos_fraction: float) -> SampleResult:
     """assigned_gt_inds: (N,) from ``max_iou_assign``. Returns ``num``
     slots; positive and negative priorities are uniform draws."""
-    n = assigned_gt_inds.shape[0]
-    r = uniform(generator, (2, n), assigned_gt_inds.device)
-    return _sample_by_priority(r[0], r[1], assigned_gt_inds > 0,
+    rp, rn = _draws(generator, assigned_gt_inds)
+    return _sample_by_priority(rp, rn, assigned_gt_inds > 0,
                                assigned_gt_inds == 0, num,
                                int(num * pos_fraction))
+
+
+def pseudo_sample(assigned_gt_inds, num: int) -> SampleResult:
+    """mmdet's PseudoSampler: no subsampling, every positive then every
+    negative in index order, truncated to ``num`` slots."""
+    idx = torch.arange(assigned_gt_inds.shape[0], dtype=torch.float32,
+                       device=assigned_gt_inds.device)
+    return _sample_by_priority(idx, idx, assigned_gt_inds > 0,
+                               assigned_gt_inds == 0, num, num)
 
 
 def ohem_sample(assigned_gt_inds, losses, num: int,
@@ -80,3 +107,52 @@ def ohem_sample(assigned_gt_inds, losses, num: int,
     return _sample_by_priority(hard, hard, assigned_gt_inds > 0,
                                assigned_gt_inds == 0, num,
                                int(num * pos_fraction))
+
+
+def instance_balanced_sample(generator, assigned_gt_inds, num: int,
+                             pos_fraction: float) -> SampleResult:
+    """mmdet's InstanceBalancedPosSampler: positives spread evenly over the
+    gt instances (each gt's random rank is the first sort key), random
+    negatives."""
+    is_pos = assigned_gt_inds > 0
+    rp, rn = _draws(generator, assigned_gt_inds)
+    return _sample_by_priority(_round_robin(assigned_gt_inds, is_pos, rp), rn,
+                               is_pos, assigned_gt_inds == 0, num,
+                               int(num * pos_fraction))
+
+
+def _iou_bins(max_overlaps, lo: float, hi: float, num_bins: int):
+    width = (hi - lo) / num_bins
+    return torch.floor((max_overlaps - lo) / max(width, 1e-12)).clamp(
+        0, num_bins - 1).long()
+
+
+def iou_balanced_neg_sample(generator, assigned_gt_inds, max_overlaps,
+                            num: int, pos_fraction: float,
+                            floor_thr: float = -1.0,
+                            floor_fraction: float = 0.0, num_bins: int = 3,
+                            neg_iou_thr: float = 0.5) -> SampleResult:
+    """mmdet's IoUBalancedNegSampler (Libra R-CNN): negatives drawn evenly
+    from ``num_bins`` IoU bins over [max(floor_thr, 0), neg_iou_thr) (each
+    bin's random rank is the first sort key), random positives.
+    ``floor_fraction`` is accepted and unused, as in vps_tpu."""
+    is_neg = assigned_gt_inds == 0
+    rp, rn = _draws(generator, assigned_gt_inds)
+    bins = _iou_bins(max_overlaps, max(floor_thr, 0.0), neg_iou_thr, num_bins)
+    return _sample_by_priority(rp, _round_robin(bins, is_neg, rn),
+                               assigned_gt_inds > 0, is_neg, num,
+                               int(num * pos_fraction))
+
+
+def combined_sample(generator, assigned_gt_inds, max_overlaps, num: int,
+                    pos_fraction: float, **neg_kwargs) -> SampleResult:
+    """mmdet's CombinedSampler as Libra R-CNN configures it:
+    instance-balanced positives and IoU-balanced negatives over
+    [0, neg_iou_thr) (``neg_kwargs``: num_bins, neg_iou_thr)."""
+    is_pos, is_neg = assigned_gt_inds > 0, assigned_gt_inds == 0
+    rp, rn = _draws(generator, assigned_gt_inds)
+    bins = _iou_bins(max_overlaps, 0.0, neg_kwargs.get("neg_iou_thr", 0.5),
+                     neg_kwargs.get("num_bins", 3))
+    return _sample_by_priority(_round_robin(assigned_gt_inds, is_pos, rp),
+                               _round_robin(bins, is_neg, rn), is_pos, is_neg,
+                               num, int(num * pos_fraction))

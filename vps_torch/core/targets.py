@@ -10,7 +10,15 @@ from typing import NamedTuple
 import torch
 
 from vps_torch.core.assigner import AssignResult, max_iou_assign
-from vps_torch.core.sampler import SampleResult, ohem_sample, random_sample
+from vps_torch.core.sampler import (
+    SampleResult,
+    combined_sample,
+    instance_balanced_sample,
+    iou_balanced_neg_sample,
+    ohem_sample,
+    pseudo_sample,
+    random_sample,
+)
 from vps_torch.ops.box import bbox2delta
 from vps_torch.ops.mask import crop_and_resize_indexed
 
@@ -18,11 +26,11 @@ from vps_torch.ops.mask import crop_and_resize_indexed
 def assign_from_cfg(cfg, bboxes, gt_bboxes, gt_labels=None, gt_pids=None,
                     bbox_valid=None, gt_valid=None) -> AssignResult:
     """``type=`` dispatch over assigners; MaxIoUAssigner, the only one the
-    VPS configs use, is the only one ported."""
+    two-stage and cascade detectors use, is the only one ported."""
     typ = cfg.get("type", "MaxIoUAssigner")
     if typ != "MaxIoUAssigner":
         raise KeyError(f"assigner type {typ!r} is not ported (ROADMAP.md "
-                       "queue 1 item 9: the rest of the zoo)")
+                       "queue 1 item 5 (c): the single-stage family)")
     return max_iou_assign(
         bboxes, gt_bboxes, pos_iou_thr=cfg["pos_iou_thr"],
         neg_iou_thr=cfg["neg_iou_thr"], min_pos_iou=cfg.get("min_pos_iou", 0.0),
@@ -32,21 +40,32 @@ def assign_from_cfg(cfg, bboxes, gt_bboxes, gt_labels=None, gt_pids=None,
 
 def sample_from_cfg(generator, cfg, assign: AssignResult,
                     loss_fn=None) -> SampleResult:
-    """``type=`` dispatch over samplers: RandomSampler and OHEMSampler (the
-    VPSNet configs' two; the rest of the zoo's are not ported). ``loss_fn``:
-    OHEM's per-candidate loss, called as loss_fn(assign) -> (N,)."""
+    """``type=`` dispatch over the six samplers, with vps_tpu's arguments.
+    ``loss_fn``: OHEM's per-candidate loss, called as loss_fn(assign) ->
+    (N,)."""
     typ = cfg.get("type", "RandomSampler")
+    num, pf = cfg["num"], cfg["pos_fraction"]
+    gi = assign.assigned_gt_inds
     if typ == "RandomSampler":
-        return random_sample(generator, assign.assigned_gt_inds, cfg["num"],
-                             cfg["pos_fraction"])
+        return random_sample(generator, gi, num, pf)
+    if typ == "PseudoSampler":
+        return pseudo_sample(gi, num)
     if typ == "OHEMSampler":
         if loss_fn is None:
             raise ValueError("OHEMSampler needs a hard-mining loss_fn (the "
                              "detector passes its bbox head's forward)")
-        return ohem_sample(assign.assigned_gt_inds, loss_fn(assign),
-                           cfg["num"], cfg["pos_fraction"])
-    raise KeyError(f"sampler type {typ!r} is not ported (ROADMAP.md queue 1 "
-                   "item 9: the rest of the zoo)")
+        return ohem_sample(gi, loss_fn(assign), num, pf)
+    if typ == "InstanceBalancedPosSampler":
+        return instance_balanced_sample(generator, gi, num, pf)
+    if typ == "IoUBalancedNegSampler":
+        return iou_balanced_neg_sample(
+            generator, gi, assign.max_overlaps, num, pf,
+            floor_thr=cfg.get("floor_thr", -1.0),
+            floor_fraction=cfg.get("floor_fraction", 0.0),
+            num_bins=cfg.get("num_bins", 3))
+    if typ == "CombinedSampler":
+        return combined_sample(generator, gi, assign.max_overlaps, num, pf)
+    raise KeyError(f"unknown sampler type {typ!r}")
 
 
 def _scatter(n, idx, values):

@@ -136,8 +136,44 @@ def avg_pool(x, kernel: int, stride: int, padding: int = 0):
     return F.avg_pool2d(x, kernel, stride, padding, count_include_pad=True)
 
 
+class _AdaptiveMaxPoolDeterministic(torch.autograd.Function):
+    """F.adaptive_max_pool2d with a backward in a fixed order: each window's
+    gradient added at its argmax by one ``index_add_`` (deterministic under
+    ``torch.use_deterministic_algorithms``); windows that overlap and share
+    an argmax add up, as the library's atomics do."""
+
+    @staticmethod
+    def forward(ctx, x, out_size):
+        out, idx = F.adaptive_max_pool2d(x, out_size, return_indices=True)
+        ctx.save_for_backward(idx)
+        ctx.in_shape = x.shape
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        b, c, h, w = ctx.in_shape
+        plane = (torch.arange(b * c, device=g.device) * (h * w))[:, None]
+        flat = (idx.reshape(b * c, -1) + plane).reshape(-1)
+        gx = g.new_zeros(b * c * h * w).index_add_(0, flat, g.reshape(-1))
+        return gx.reshape(b, c, h, w), None
+
+
+def adaptive_max_pool_deterministic(x, out_size: Tuple[int, int]):
+    """F.adaptive_max_pool2d(x, out_size), bit for bit, whose backward adds
+    in a fixed order."""
+    return _AdaptiveMaxPoolDeterministic.apply(x, tuple(out_size))
+
+
 def adaptive_max_pool(x, out_size: Tuple[int, int]):
-    """F.adaptive_max_pool2d: window i = [floor(i*H/out), ceil((i+1)*H/out))."""
+    """F.adaptive_max_pool2d: window i = [floor(i*H/out), ceil((i+1)*H/out)).
+    Under torch.use_deterministic_algorithms (``train_policy``) its backward
+    is ``adaptive_max_pool_deterministic``'s: the card's library backward
+    adds with atomics and has no deterministic form."""
     if tuple(out_size) == tuple(x.shape[-2:]):
         return x
+    if (torch.are_deterministic_algorithms_enabled()
+            and torch.is_grad_enabled()
+            and x.requires_grad):
+        return adaptive_max_pool_deterministic(x, out_size)
     return F.adaptive_max_pool2d(x, tuple(out_size))

@@ -1,14 +1,17 @@
 """The mask-branch heads of the R-CNN zoo (port of
-vps_tpu/models/mask_heads.py, inference):
+vps_tpu/models/mask_heads.py), their losses and training targets:
 
 - FusedSemanticHead: HTC's multi-level fused semantic branch (lateral 1x1s,
   fused at one level, 3x3 convs, logits and an embedding).
 - HTCMaskHead: FCNMaskHead with a 1x1 ``conv_res`` input for HTC's mask
   information flow.
-- MaskIoUHead: Mask Scoring R-CNN's mask-IoU regressor.
-- GridHead and ``grid_bboxes``: Grid R-CNN Plus's grid-point heatmaps with
-  first- and second-order neighbour fusion, and the boundary-voting decode,
-  vectorised over RoIs.
+- MaskIoUHead and ``mask_iou_target``: Mask Scoring R-CNN's mask-IoU
+  regressor and its targets (box sums from one integral image of the gt
+  masks, no per-RoI crop).
+- GridHead, ``grid_target`` and ``grid_bboxes``: Grid R-CNN Plus's
+  grid-point heatmaps with first- and second-order neighbour fusion (and in
+  training the heatmaps of the features before it), their targets, and the
+  boundary-voting decode, vectorised over RoIs.
 
 Modules take NHWC RoI windows (R, S, S, C), as the port's other RoI heads
 do, and compute NCHW inside; parameter names are mmdet's.
@@ -23,6 +26,10 @@ import torch.nn.functional as F
 
 from vps_torch.models.layers import Conv, ConvModule, max_pool, resize_bilinear
 from vps_torch.models.mask_head import FCNMaskHead
+from vps_torch.ops.losses import (
+    binary_cross_entropy_with_logits,
+    softmax_cross_entropy,
+)
 from vps_torch.registry import HEADS
 
 
@@ -38,6 +45,8 @@ class FusedSemanticHead(nn.Module):
         super().__init__()
         self.num_ins = num_ins
         self.fusion_level = fusion_level
+        self.ignore_label = ignore_label
+        self.loss_weight = loss_weight
         self.lateral_convs = nn.ModuleList(
             ConvModule(in_channels, in_channels, 1, 1, 0, device=device)
             for _ in range(num_ins))
@@ -61,6 +70,13 @@ class FusedSemanticHead(nn.Module):
         for conv in self.convs:
             x = conv(x)
         return self.conv_logits(x), self.conv_embedding(x)
+
+    def loss(self, mask_pred, labels):
+        """Cross entropy with ``ignore_label`` left out, x ``loss_weight``.
+        mask_pred (B, K, h, w) logits; labels (B, h, w) int at their size."""
+        return self.loss_weight * softmax_cross_entropy(
+            mask_pred.permute(0, 2, 3, 1), labels,
+            ignore_index=self.ignore_label)
 
 
 @HEADS.register
@@ -111,6 +127,7 @@ class MaskIoUHead(nn.Module):
                  conv_out_channels, 3, 2 if i == num_convs - 1 else 1, 1,
                  device=device)
             for i in range(num_convs))
+        self.loss_weight = loss_weight
         pooled = (roi_feat_size // 2) ** 2
         dims = [conv_out_channels * pooled] + [fc_out_channels] * num_fcs
         self.fcs = nn.ModuleList(
@@ -130,6 +147,42 @@ class MaskIoUHead(nn.Module):
             x = F.relu(fc(x))
         return self.fc_mask_iou(x)
 
+    def loss(self, pos_iou_pred, iou_targets, pos_valid):
+        """x ``loss_weight``, the mean squared error over the valid
+        positives whose target is above 0."""
+        w = (pos_valid & (iou_targets > 0)).float()
+        den = w.sum().clamp(min=1.0)
+        return self.loss_weight * (w * (pos_iou_pred - iou_targets) ** 2
+                                   ).sum() / den
+
+
+def mask_iou_target(pos_rois, pos_gt_idx, pos_valid, gt_masks, mask_pred,
+                    mask_targets, thr: float = 0.5):
+    """The IoU of each positive's binarised mask (sigmoid > ``thr``) with
+    its whole gt instance. Inside the RoI that is the 28x28 target; the gt's
+    area outside comes from area_ratio = gt area in the box / gt area, both
+    from one integral image of the gt stack (inclusive boxes, coordinates
+    truncated to int). pos_rois (P, 4); pos_gt_idx (P,); gt_masks (G, H, W)
+    {0, 1}; mask_pred (P, 28, 28) logits; mask_targets (P, 28, 28).
+    Returns (P,), 0 where not ``pos_valid``."""
+    g, h, w = gt_masks.shape
+    ii = F.pad(gt_masks.float().cumsum(1).cumsum(2), (1, 0, 1, 0))
+    x1 = pos_rois[:, 0].int().clamp(0, w)
+    y1 = pos_rois[:, 1].int().clamp(0, h)
+    x2 = (pos_rois[:, 2].int() + 1).clamp(0, w)
+    y2 = (pos_rois[:, 3].int() + 1).clamp(0, h)
+    gi = pos_gt_idx.long()
+    in_box = (ii[gi, y2, x2] - ii[gi, y1, x2] - ii[gi, y2, x1]
+              + ii[gi, y1, x1])
+    full = gt_masks.float().sum((1, 2))[gi]
+    area_ratio = in_box / full.clamp(min=1e-7)
+    pred_bin = (torch.sigmoid(mask_pred) > thr).float()
+    pred_area = pred_bin.sum((1, 2))
+    overlap = (pred_bin * mask_targets).sum((1, 2))
+    gt_full = mask_targets.sum((1, 2)) / area_ratio.clamp(min=1e-7)
+    iou = overlap / (pred_area + gt_full - overlap).clamp(min=1e-7)
+    return torch.where(pos_valid, iou, torch.zeros_like(iou))
+
 
 # ---------------------------------------------------------------------------
 # Grid R-CNN
@@ -137,12 +190,13 @@ class MaskIoUHead(nn.Module):
 
 
 def _grid_geometry(grid_points: int, roi_feat_size: int):
-    """The grid's side, the whole and half heatmap sizes, and the static
-    corner of each grid point's sub-region window."""
+    """The grid's side, the whole and half heatmap sizes, the static corner
+    of each grid point's sub-region window, and each point's interpolation
+    factors (fx, fy) between the gt box's (x1, y1) and (x2, y2)."""
     grid_size = int(np.sqrt(grid_points))
     whole = roi_feat_size * 4
     half = whole // 4 * 2
-    subs = []
+    subs, factors = [], []
     for j in range(grid_points):
         corner = []
         for idx in (j // grid_size, j % grid_size):  # x, then y
@@ -154,7 +208,9 @@ def _grid_geometry(grid_points: int, roi_feat_size: int):
                 corner.append(max(int((idx / (grid_size - 1) - 0.25) * whole),
                                   0))
         subs.append(tuple(corner))
-    return grid_size, whole, half, subs
+        factors.append((1 - (j // grid_size) / (grid_size - 1),
+                        1 - (j % grid_size) / (grid_size - 1)))
+    return grid_size, whole, half, subs, factors
 
 
 def _neighbors(gsz: int):
@@ -229,9 +285,10 @@ class GridHead(nn.Module):
         self.deconv2 = nn.ConvTranspose2d(out_ch, grid_points, 4, 2, 1,
                                           groups=grid_points, device=device)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         """x (R, S, S, C) -> fused heatmap logits (R, 2S, 2S, grid_points),
-        NHWC (inference has no unfused branch)."""
+        NHWC; with ``train`` (fused, unfused), the unfused heatmaps from the
+        features before the neighbour fusion through the same deconvs."""
         x = x.permute(0, 3, 1, 2)
         for conv in self.convs:
             x = conv(x)
@@ -249,8 +306,57 @@ class GridHead(nn.Module):
             for j, p in enumerate(nbrs):
                 acc = acc + self.sorder_trans[i][j](x_fo[p])
             x_so.append(acc)
-        x2 = F.relu(self.norm1(self.deconv1(torch.cat(x_so, 1))))
-        return self.deconv2(x2).permute(0, 2, 3, 1)
+        fused = self._heatmap(torch.cat(x_so, 1))
+        if train:
+            return fused, self._heatmap(x)
+        return fused
+
+    def _heatmap(self, x):
+        x = F.relu(self.norm1(self.deconv1(x)))
+        return self.deconv2(x).permute(0, 2, 3, 1)
+
+    def loss(self, fused, unfused, targets, valid, loss_weight: float = 15.0):
+        """Sigmoid cross entropy of both heatmaps against ``targets`` (R,
+        h, h, P), each the mean over the valid RoIs' elements, their sum x
+        ``loss_weight``."""
+        w = valid.float()[:, None, None, None]
+        den = w.sum().clamp(min=1.0) * int(np.prod(targets.shape[1:]))
+        return loss_weight * (
+            binary_cross_entropy_with_logits(fused, targets, weight=w,
+                                             avg_factor=den)
+            + binary_cross_entropy_with_logits(unfused, targets, weight=w,
+                                               avg_factor=den))
+
+
+def grid_target(pos_rois, pos_gt_bboxes, pos_valid, grid_points: int = 9,
+                roi_feat_size: int = 14, pos_radius: int = 1):
+    """Grid-point heatmap targets, vectorised: for each RoI (its window
+    doubled about its centre) and grid point, the disc of ``pos_radius``
+    around the gt box's point in that point's sub-region window. Returns
+    (P, half, half, grid_points) NHWC {0, 1}; 0 for a RoI not valid or not
+    wider and taller than the grid."""
+    gsz, whole, half, subs, factors = _grid_geometry(grid_points,
+                                                     roi_feat_size)
+    x1 = pos_rois[:, 0] - (pos_rois[:, 2] - pos_rois[:, 0]) / 2
+    y1 = pos_rois[:, 1] - (pos_rois[:, 3] - pos_rois[:, 1]) / 2
+    ws = (pos_rois[:, 2] - pos_rois[:, 0]) * 2
+    hs = (pos_rois[:, 3] - pos_rois[:, 1]) * 2
+    ok = pos_valid & (ws > gsz) & (hs > gsz)
+    ar = torch.arange(half, device=pos_rois.device)
+    yy, xx = torch.meshgrid(ar, ar, indexing="ij")
+    chans = []
+    for j in range(grid_points):
+        fx, fy = factors[j]
+        gx = fx * pos_gt_bboxes[:, 0] + (1 - fx) * pos_gt_bboxes[:, 2]
+        gy = fy * pos_gt_bboxes[:, 1] + (1 - fy) * pos_gt_bboxes[:, 3]
+        cx = ((gx - x1) / ws.clamp(min=1e-6) * whole).int()
+        cy = ((gy - y1) / hs.clamp(min=1e-6) * whole).int()
+        # shift into this point's sub-region window
+        dx = xx[None] + subs[j][0] - cx[:, None, None]
+        dy = yy[None] + subs[j][1] - cy[:, None, None]
+        hit = (dx * dx + dy * dy) <= pos_radius * pos_radius
+        chans.append(hit & ok[:, None, None])
+    return torch.stack(chans, -1).float()
 
 
 def grid_bboxes(det_bboxes, heatmaps, img_shape, grid_points: int = 9,
@@ -260,7 +366,7 @@ def grid_bboxes(det_bboxes, heatmaps, img_shape, grid_points: int = 9,
     coordinates, and each border the score-weighted mean of its points.
     det_bboxes (R, 4); heatmaps (R, half, half, P) fused logits NHWC.
     Returns (R, 4) boxes clipped to img_shape."""
-    gsz, whole, half, subs = _grid_geometry(grid_points, roi_feat_size)
+    gsz, whole, half, subs, _ = _grid_geometry(grid_points, roi_feat_size)
     r = det_bboxes.shape[0]
     dev = det_bboxes.device
     prob = torch.sigmoid(heatmaps)

@@ -10,7 +10,11 @@ names one). The model trains in f32 (``zoo.f32_compute_overrides``, as the
 JAX trainer does) unless ``--bf16-compute``; weights start from
 ``random_init_`` with the seed unless ``--load_from`` or ``--resume_from``
 gives a checkpoint of the port's own format. Checkpoints and ``train.log``
-go to the work dir. Runs on the card unless ``--device cpu``.
+go to the work dir. Runs on the card unless ``--device cpu``. Steps run
+under ``vps_torch.utils.numerics.train_policy`` (the Runner's), so a run
+repeats bit for bit from the same seed; the tool sets
+``CUBLAS_WORKSPACE_CONFIG`` before it touches the card, as the policy
+needs.
 """
 
 from __future__ import annotations
@@ -29,7 +33,11 @@ from vps_torch.data import build_dataset, build_loader
 from vps_torch.models.detectors import build_detector, random_init_
 from vps_torch.train.eval_hook import make_video_eval_hook
 from vps_torch.train.runner import Runner
-from vps_torch.utils.numerics import describe, f32_policy
+from vps_torch.utils.numerics import (
+    describe,
+    deterministic_cublas,
+    f32_policy,
+)
 
 
 def parse_args(argv=None):
@@ -63,6 +71,7 @@ def main(argv=None):
     logged step)."""
     args = parse_args(argv)
     numerics = f32_policy()
+    deterministic_cublas()  # before CUDA: the Runner trains under train_policy
     device = resolve_device(args.device)
     cfg = Config.fromfile(args.config)
     work_dir = args.work_dir or cfg.get("work_dir", "./work_dirs/default")

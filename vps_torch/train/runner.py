@@ -3,6 +3,10 @@ schedule, text logging, checkpoints, ``load_from`` / ``resume_from`` and a
 post-epoch ``eval_fn`` hook, over any loader with ``epoch(e)`` (an iterable
 of batches: dicts of arrays with a leading batch dim) and
 ``steps_per_epoch()``.
+
+``run`` trains under ``vps_torch.utils.numerics.train_policy``: a step
+repeats bit for bit from the same weights, optimizer state and generator,
+as the JAX trainer's does.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ import torch
 from vps_torch.train.optim import build_lr_schedule, build_optimizer
 from vps_torch.train.step import TrainState, make_train_step
 from vps_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from vps_torch.utils.numerics import train_policy
 
 
 def _to_device(batch, device):
@@ -87,35 +92,39 @@ class Runner:
                                        {"state_dict": det.state_dict()})
             det.load_state_dict(restored["state_dict"])
 
-        step_fn = make_train_step(det, opt)
-        gen = torch.Generator(device=det.device).manual_seed(self.seed + 12345)
-        for epoch in range(start_epoch, self.total_epochs):
-            self._sync()
-            t_iter = time.perf_counter()
-            for i, batch in enumerate(self.loader.epoch(epoch)):
-                state, log_vars = step_fn(state, _to_device(batch, det.device),
-                                          gen)
-                if (i + 1) % self.log_interval == 0:
-                    self._sync()
-                    dt = (time.perf_counter() - t_iter) / self.log_interval
-                    vals = {k: float(v) for k, v in log_vars.items()}
-                    self.log_history.append(dict(epoch=epoch + 1, iter=i + 1,
-                                                 time=dt, **vals))
-                    msg = ", ".join(f"{k}: {v:.4f}"
-                                    for k, v in sorted(vals.items()))
-                    self.logger.info(f"Epoch [{epoch + 1}][{i + 1}] "
-                                     f"time: {dt:.3f}s, {msg}")
-                    self._sync()
-                    t_iter = time.perf_counter()
-            if (epoch + 1) % self.ckpt_interval == 0 \
-                    or epoch + 1 == self.total_epochs:
-                save_checkpoint(self.work_dir, state.step, det.state_dict(),
-                                opt.state_dict(),
-                                meta=dict(epoch=epoch + 1, step=state.step))
-            if self.eval_fn is not None and (epoch + 1) % self.eval_interval == 0:
-                metrics = self.eval_fn(state, epoch + 1)
-                if metrics:
-                    msg = ", ".join(f"{k}: {v:.4f}"
-                                    for k, v in sorted(metrics.items()))
-                    self.logger.info(f"Eval [{epoch + 1}] {msg}")
-        return state
+        with train_policy():
+            step_fn = make_train_step(det, opt)
+            gen = torch.Generator(device=det.device).manual_seed(
+                self.seed + 12345)
+            for epoch in range(start_epoch, self.total_epochs):
+                self._sync()
+                t_iter = time.perf_counter()
+                for i, batch in enumerate(self.loader.epoch(epoch)):
+                    state, log_vars = step_fn(
+                        state, _to_device(batch, det.device), gen)
+                    if (i + 1) % self.log_interval == 0:
+                        self._sync()
+                        dt = (time.perf_counter() - t_iter) / self.log_interval
+                        vals = {k: float(v) for k, v in log_vars.items()}
+                        self.log_history.append(dict(
+                            epoch=epoch + 1, iter=i + 1, time=dt, **vals))
+                        msg = ", ".join(f"{k}: {v:.4f}"
+                                        for k, v in sorted(vals.items()))
+                        self.logger.info(f"Epoch [{epoch + 1}][{i + 1}] "
+                                         f"time: {dt:.3f}s, {msg}")
+                        self._sync()
+                        t_iter = time.perf_counter()
+                if (epoch + 1) % self.ckpt_interval == 0 \
+                        or epoch + 1 == self.total_epochs:
+                    save_checkpoint(self.work_dir, state.step,
+                                    det.state_dict(), opt.state_dict(),
+                                    meta=dict(epoch=epoch + 1,
+                                              step=state.step))
+                if (self.eval_fn is not None
+                        and (epoch + 1) % self.eval_interval == 0):
+                    metrics = self.eval_fn(state, epoch + 1)
+                    if metrics:
+                        msg = ", ".join(f"{k}: {v:.4f}"
+                                        for k, v in sorted(metrics.items()))
+                        self.logger.info(f"Eval [{epoch + 1}] {msg}")
+            return state
