@@ -68,7 +68,29 @@ Phases, each printing its own line of numbers:
                  artifact, VPQ outside [0, 100], the GT not scoring 100
                  against itself, or a kernel that did not launch; then
                  tools.test_vpq --aug (each frame and its flip) on the same
-                 checkpoint, scored by tools.eval_vpq.
+                 checkpoint, scored by tools.eval_vpq. On its fixture and
+                 checkpoint, before they are removed:
+     robustness -- tools.test_robustness at half-flow over the first val
+                 video's 4 frames, clean and under gaussian_noise,
+                 motion_blur, fog and jpeg_compression at severities 1 and
+                 5 (detections from score 0.001, the box-eval threshold of
+                 mmdetection's HTC), then tools.robustness_eval; prints
+                 frames/s, the corruption's host seconds a frame and
+                 bbox_mAP per run, P, mPC, rPC; fails unless corr_bf16_tc
+                 launched 2 a frame, the report has one entry a run and the
+                 clean run's detections (at least one) equal predict's, bit
+                 for bit, under inference_policy.
+     detection eval -- the val fixture as an image-level CityscapesDataset
+                 at Cityscapes' test scale (2048, 1024), the zoo's Mask
+                 R-CNN with 9 classes on seeded weights
+                 (mmdetection's configs/cityscapes/
+                 mask_rcnn_r50_fpn_1x_cityscapes.py); its detections scored
+                 by tools.coco_eval and tools.voc_eval, then the GT as its
+                 own detections, which must read AP 1.0000 at every IoU
+                 threshold and mAP 1.0000, and tools.coco_error_analysis
+                 --no-plots on it, whose C75 must read 1.0 for each class
+                 with a gt; prints images/s and the evaluator's host
+                 seconds; fails on a port kernel launched.
   6. viper    -- VIPER from files to VPQ: a synthetic fixture in VIPER's
                  format at 1080x1920 (tests/viper_fixture.py: 23 classes,
                  things 13..22; 1 train video of 4 frames, 2 val videos of
@@ -1092,7 +1114,8 @@ def _loader_seconds(cfg_path):
     return out
 
 
-def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
+def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
+                  then=()):
     """The user's workflow from a dataset on disk, through the port's entry
     points in this process: the synthetic Cityscapes-VPS fixture
     (``vps_torch.data.synth``: 1 train video of 4 frames, 2 val videos of 4
@@ -1104,8 +1127,11 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
     eval_vpq with the GT itself as the submission, which must read 100;
     then ``test_vpq --aug`` (each frame and its flip) on the same checkpoint,
     scored by eval_vpq. ``tiny``: the tiny model and pipelines at h x w, for
-    a CPU rehearsal. Returns the launch counts of the train, test and aug
-    runs by path."""
+    a CPU rehearsal. ``then``: phases that run on the fixture and the
+    checkpoint before they are removed, each called with a dict of their
+    paths (``cfg``, ``ckpt``, ``val_ann``, ``val_img``, ``tmp``) and
+    returning its launch counts by path. Returns the launch counts of the
+    train, test and aug runs (and of ``then``'s paths) by path."""
     import torch
     from vps_torch.data.synth import make_synth_vps
     from vps_torch.tools import eval_vpq, test_vpq, train
@@ -1213,6 +1239,10 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
             "--submit_dir", gt_sub, "--truth_dir", truth_dir,
             "--pan_gt_json_file", gt_json, "--nframes_per_video",
             str(val_frames)])
+        later = {}
+        for phase in then:
+            later.update(phase(dict(cfg=cfg_path, ckpt=ckpt, val_ann=val_ann,
+                                    val_img=val_img, tmp=tmp)))
 
     n_val = val_videos * val_frames
     steps = [r["time"] for r in hist[1:]]
@@ -1271,7 +1301,272 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False):
             "dataset test_vpq --aug": _want(corr_bf16_tc=4 * n_val)}
     if on_card and got != want:
         raise AssertionError(f"dataset: kernel launches {got}, want {want}")
-    return got
+    return dict(got, **later)
+
+
+ROBUST_FRAMES = 4  # the first val video
+ROBUST_CORRUPTIONS = ("gaussian_noise", "motion_blur", "fog",
+                      "jpeg_compression")
+ROBUST_SEVERITIES = (1, 5)
+# box mAP ranks the detections down to a low score: 0.001, the score_thr
+# of mmdetection's HTC test_cfg (zoo_configs); the panoptic fusion's 0.6,
+# and 0.05 too, keep none of the 4 train steps' detections on clean frames
+ROBUST_CONFIG = """
+_base_ = r"{base}"
+test_cfg = dict(panoptic=dict(score_thresh=0.001))
+"""
+
+
+def phase_robustness(smi, fx, device="cuda"):
+    """The corruption benchmark on the dataset phase's fixture and
+    checkpoint (R-50 FuseTrack at half-flow; ``fx``: phase_dataset's
+    paths; ROBUST_CONFIG's detection threshold):
+    ``vps_torch.tools.test_robustness`` in this process over the first val
+    video's ROBUST_FRAMES frames, clean and under ROBUST_CORRUPTIONS x
+    ROBUST_SEVERITIES, then ``tools.robustness_eval`` on its report. Fails
+    unless the report has one entry a run, ``corr_bf16_tc`` launched 2 a
+    frame and nothing else, and the clean run's detections (at least one)
+    equal, bit for bit, ``predict``'s on the same frames under
+    ``inference_policy`` (a detector of its own from the same checkpoint).
+    Returns the launch counts by path."""
+    import torch
+    from vps_torch.config import Config
+    from vps_torch.data import build_dataset
+    from vps_torch.models.builder import build_detector
+    from vps_torch.models.detectors import empty_track_state
+    from vps_torch.tools import robustness_eval, test_robustness
+    from vps_torch.utils.checkpoint import load_checkpoint
+    from vps_torch.utils.numerics import inference_policy
+
+    start = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    out_dir = os.path.join(fx["tmp"], "robustness")
+    cfg_path = os.path.join(fx["tmp"], "robustness_cfg.py")
+    with open(cfg_path, "w") as f:
+        f.write(ROBUST_CONFIG.format(base=fx["cfg"]))
+    runs = 1 + len(ROBUST_CORRUPTIONS) * len(ROBUST_SEVERITIES)
+    _reset_counts()
+    t0 = time.perf_counter()
+    res = test_robustness.main(
+        [cfg_path, "--checkpoint", fx["ckpt"], "--out", out_dir,
+         "--max_frames", str(ROBUST_FRAMES), "--corruptions",
+         *ROBUST_CORRUPTIONS, "--severities",
+         *(str(v) for v in ROBUST_SEVERITIES), "--device", device])
+    _sync(device)
+    tool_s = time.perf_counter() - t0
+    launches = _counts()
+    report = res["report"]
+    t0 = time.perf_counter()
+    summary = robustness_eval.main([os.path.join(out_dir, "robustness.json")])
+    summary_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cfg = Config.fromfile(cfg_path)
+    det = build_detector(cfg.model, cfg.train_cfg, cfg.test_cfg, device)
+    det.load_state_dict(load_checkpoint(fx["ckpt"])["state_dict"])
+    dataset = build_dataset(cfg.data["test"])
+    num_fg = cfg.model["bbox_head"]["num_classes"] - 1
+    want = []
+    with inference_policy():
+        state = empty_track_state(256, device=device)
+        for idx in range(ROBUST_FRAMES):
+            img, ref, meta = dataset.prepare_test(idx)
+            if meta["is_first"]:
+                state = empty_track_state(256, device=device)
+            out, state = det.predict(
+                torch.as_tensor(img, device=device)[None],
+                torch.as_tensor(ref, device=device)[None], state,
+                img_shape_withoutpad=tuple(meta["img_shape_withoutpad"]))
+            want.append(test_robustness.det_lists(out, num_fg,
+                                                  meta["scale_factor"]))
+    _sync(device)
+    replay_s = time.perf_counter() - t0
+    got = res["det_results"]["clean"]
+    same = sum(g.dtype == w.dtype and np.array_equal(g, w)
+               for gi, wi in zip(got, want) for g, w in zip(gi, wi))
+    ndet = sum(len(w) for wi in want for w in wi)
+
+    print(f"robustness: test_robustness R-{cfg.model['backbone']['depth']} "
+          f"FuseTrack half-flow, detections from score "
+          f"{cfg.test_cfg['panoptic']['score_thresh']}, "
+          f"{ROBUST_FRAMES} frames a run, {runs} runs (clean, "
+          f"{' '.join(ROBUST_CORRUPTIONS)} at severities "
+          f"{' '.join(map(str, ROBUST_SEVERITIES))}) in {tool_s:.1f}s, "
+          f"launches {launches}; card: {smi}")
+    for key, r in report.items():
+        print(f"robustness: {key}: {r['fps']:.3f} frames/s (loading, "
+              f"corruption, predict, detections to the host), corruption "
+              f"{res['corrupt_s'][key]:.4f} s a frame on the host (image and "
+              f"reference), {r['mean_detections']:.2f} detections a frame, "
+              f"bbox_mAP {r['bbox_mAP']:.4f}")
+    print(f"robustness: P {summary['P']:.4f}, mPC {summary['mPC']:.4f}, rPC "
+          f"{summary['rPC']:.4f}; the clean run against predict under "
+          f"inference_policy: {same} of {num_fg * ROBUST_FRAMES} class lists "
+          f"bitwise equal ({ndet} detections); bbox_mAP from "
+          f"{len(report)} runs of random weights trained 4 steps is a check "
+          f"of the chain, not a quality number")
+    print(f"robustness: phase {time.perf_counter() - start:.1f}s wall: "
+          f"test_robustness {tool_s:.1f}s, robustness_eval {summary_s:.3f}s, "
+          f"the predict replay (detector build, checkpoint, "
+          f"{ROBUST_FRAMES} frames) {replay_s:.1f}s")
+    if sorted(report) != sorted(["clean"] + [
+            f"{c}_s{v}" for c in ROBUST_CORRUPTIONS for v in ROBUST_SEVERITIES]):
+        raise AssertionError(f"robustness: report runs {sorted(report)}")
+    if any(r["frames"] != ROBUST_FRAMES for r in report.values()):
+        raise AssertionError("robustness: a run with another frame count")
+    if ndet == 0:
+        raise AssertionError("robustness: no detection in the clean run")
+    if same != num_fg * ROBUST_FRAMES:
+        raise AssertionError(f"robustness: the clean run's detections differ "
+                             f"from predict's in {num_fg * ROBUST_FRAMES - same}"
+                             f" class lists")
+    if on_card and launches != _want(corr_bf16_tc=2 * ROBUST_FRAMES * runs):
+        raise AssertionError(f"robustness: launches {launches}, want 2 a "
+                             f"frame over {ROBUST_FRAMES * runs} frames")
+    return {"robustness": launches}
+
+
+DETECTION_EVAL_CONFIG = """
+data = dict(val=dict(type="CityscapesDataset", ann_file=r"{ann}",
+                     img_prefix=r"{img}", test_mode=True,
+                     pipeline=dict(img_scale={scale})))
+"""
+# mmdetection's configs/cityscapes/mask_rcnn_r50_fpn_1x_cityscapes.py: the
+# zoo's Mask R-CNN with 9 classes (8 things and the background), tested at
+# Cityscapes' scale
+CITYSCAPES_SCALE = (2048, 1024)
+
+
+def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
+    """Box evaluation on the dataset phase's val fixture (``fx``) read as
+    an image-level CityscapesDataset: the zoo's Mask R-CNN with 9 classes,
+    seeded weights, at ``scale``, over every val image; its per-class
+    detections to a pickle, scored by ``vps_torch.tools.coco_eval`` and
+    ``voc_eval``; then the ground truth as its own detections (score 1),
+    which must read AP 1.0000 at every IoU threshold and mAP 1.0000, and
+    ``coco_error_analysis --no-plots`` on it as COCO results, whose C75
+    must read 1.0 for each class with a gt. Fails on a port kernel
+    launched. Returns the launch counts by path."""
+    import torch
+    from vps_torch.config import Config
+    from vps_torch.data import build_dataset
+    from vps_torch.models.builder import build_detector
+    from vps_torch.models.detectors import random_init_
+    from vps_torch.tools import (
+        coco_error_analysis,
+        coco_eval,
+        test_robustness,
+        voc_eval,
+    )
+    from vps_torch.utils.numerics import inference_policy
+
+    start = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    tmp = os.path.join(fx["tmp"], "detection_eval")
+    os.makedirs(tmp)
+    cfg_path = os.path.join(tmp, "cfg.py")
+    with open(cfg_path, "w") as f:
+        f.write(DETECTION_EVAL_CONFIG.format(ann=fx["val_ann"],
+                                             img=fx["val_img"],
+                                             scale=tuple(scale)))
+    dataset = build_dataset(Config.fromfile(cfg_path).data["val"])
+    t0 = time.perf_counter()
+    source, model, _, test_cfg = zoo_configs()["mask_rcnn"]
+    model = dict(model, bbox_head=dict(model["bbox_head"], num_classes=9),
+                 mask_head=dict(model["mask_head"], num_classes=9))
+    det = random_init_(build_detector(_zoo_port_cfg(model)[0],
+                                      test_cfg=test_cfg, device=device),
+                       seed=SEED)
+    _sync(device)
+    build_s = time.perf_counter() - t0
+    dets, n, load_s, pred_s = [], len(dataset), [], []
+    with inference_policy():
+        _reset_counts()
+        t0 = time.perf_counter()
+        for idx in range(n):
+            t1 = time.perf_counter()
+            img, _, meta = dataset.prepare_test(idx)
+            t2 = time.perf_counter()
+            out = det.predict(torch.as_tensor(img, device=device)[None])
+            dets.append(test_robustness.det_lists(out, 8, meta["scale_factor"]))
+            load_s.append(t2 - t1)
+            pred_s.append(time.perf_counter() - t2)
+        _sync(device)
+        loop_s = time.perf_counter() - t0
+        ips = n / loop_s
+        launches = _counts()
+    gt_dets = []
+    for idx in range(n):
+        ann = dataset.get_ann_info(idx)
+        gt_dets.append([np.concatenate(
+            [ann["bboxes"][ann["labels"] == c + 1],
+             np.ones(((ann["labels"] == c + 1).sum(), 1), np.float32)], 1)
+            for c in range(8)])
+    scores, eval_s = {}, {}
+    for key, results in (("model", dets), ("gt", gt_dets)):
+        pkl = os.path.join(tmp, f"{key}.pkl")
+        with open(pkl, "wb") as f:
+            pickle.dump(results, f)
+        t0 = time.perf_counter()
+        coco = coco_eval.main([pkl, cfg_path])
+        voc = voc_eval.main([pkl, cfg_path])[0]
+        eval_s[key] = time.perf_counter() - t0
+        scores[key] = (coco, voc)
+    with open(fx["val_ann"]) as f:
+        gt_json = json.load(f)
+    res_json = os.path.join(tmp, "gt_results.json")
+    with open(res_json, "w") as f:
+        json.dump([dict(image_id=a["image_id"], category_id=a["category_id"],
+                        bbox=a["bbox"], score=1.0)
+                   for a in gt_json["annotations"]], f)
+    t0 = time.perf_counter()
+    analysis = coco_error_analysis.main(
+        [res_json, os.path.join(tmp, "analysis"), "--ann", fx["val_ann"],
+         "--no-plots"])["bbox"]
+    analysis_s = time.perf_counter() - t0
+    with_gt = sorted({c["name"] for c in gt_json["categories"]
+                      for a in gt_json["annotations"]
+                      if a["category_id"] == c["id"]})
+    c75 = {name: analysis[name]["C75"]["allarea"] for name in with_gt}
+    ndet = sum(len(c) for d in dets for c in d)
+
+    print(f"detection eval: {type(det).__name__} from mmdetection v1.0 "
+          f"{source} with 9 classes (configs/cityscapes/"
+          f"mask_rcnn_r50_fpn_1x_cityscapes.py), seeded weights, "
+          f"CityscapesDataset over the val fixture ({n} images at "
+          f"img_scale {tuple(scale)}), {ips:.3f} images/s (loading, predict, "
+          f"detections to the host; the first image {pred_s[0]:.3f} s of "
+          f"predict, the others' median {statistics.median(pred_s[1:]):.4f} "
+          f"s, loading a median {statistics.median(load_s):.4f} s), {ndet} "
+          f"detections, launches {launches}; card: {smi}")
+    for key, (coco, voc) in scores.items():
+        print(f"detection eval: {key} as detections: coco_eval "
+              + " ".join(f"{k} {v:.4f}" for k, v in coco.items())
+              + f"; voc_eval mAP {voc:.4f}; evaluator {eval_s[key]:.3f} s "
+              f"on the host")
+    print(f"detection eval: coco_error_analysis --no-plots on the GT as its "
+          f"results in {analysis_s:.3f} s: C75 (allarea) "
+          + ", ".join(f"{k} {v:.4f}" for k, v in c75.items())
+          + f"; allclass over all 8 classes "
+          + " ".join(f"{t} {analysis['allclass'][t]['allarea']:.4f}"
+                     for t in ("C75", "C50", "Loc", "BG", "FN")))
+    print(f"detection eval: phase {time.perf_counter() - start:.1f}s wall: "
+          f"Mask R-CNN build and seeded init {build_s:.1f}s, {n} images "
+          f"(loading, predict) {loop_s:.1f}s, coco_eval and voc_eval twice "
+          f"{sum(eval_s.values()):.3f}s, coco_error_analysis "
+          f"{analysis_s:.3f}s")
+    coco_gt, voc_gt = scores["gt"]
+    if not all(v == 1.0 for v in coco_gt.values()) or voc_gt != 1.0:
+        raise AssertionError(f"detection eval: the GT as detections reads "
+                             f"{coco_gt}, voc mAP {voc_gt}, not 1.0")
+    if not with_gt or any(v != 1.0 for v in c75.values()):
+        raise AssertionError(f"detection eval: the GT's C75 {c75}, not 1.0")
+    if ndet == 0:
+        raise AssertionError("detection eval: no detection")
+    if on_card and launches != _want():
+        raise AssertionError(f"detection eval: port kernel launches "
+                             f"{launches}: the zoo's path runs none")
+    return {"detection eval": launches}
 
 
 VIPER_CONFIG = """
@@ -3164,6 +3459,14 @@ def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
                   lambda: _zoo_optimizer(zdet))
 
 
+def _timed(name, fn, *args, **kw):
+    """fn(*args, **kw), then a line of its wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    print(f"phase {name}: {time.perf_counter() - t0:.1f}s wall")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3182,32 +3485,41 @@ def main() -> int:
         return 1
     print(describe(numerics))
     t0 = time.perf_counter()
-    smi = phase_build()
-    kernels = phase_kernels_correlation() + [
-        phase_kernels_correlation_backward(), phase_kernels_windowed()]
-    paths = {"main": phase_main(smi),
-             "window": phase_main(smi, dcn_window=WINDOW),
-             "train": phase_train(smi),
-             "fuse": phase_detector(smi, "PanopticFuse"),
-             "track": phase_detector(smi, "PanopticTrack"),
-             "aug": phase_aug(smi),
-             "ohem train": phase_train(smi, steps=OHEM_STEPS, sampler=OHEM)}
-    phase_small()
-    phase_small(dcn_window=WINDOW)
-    phase_small(kind="PanopticFuse")
-    phase_small(kind="PanopticTrack")
-    phase_small(refine_type="att")
-    phase_small_aug()
-    phase_small_train()
-    phase_small_train(sampler=dict(OHEM, num=32))
-    paths.update(phase_zoo(smi, ("mask_rcnn", "cascade_mask_rcnn", "htc")))
-    paths.update({f"zoo {k}": v for k, v in phase_zoo(smi, ZOO_OTHERS).items()})
-    phase_small_zoo()
-    paths.update(phase_zoo_train(smi, ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
-    phase_small_zoo_train()
-    phase_train_repeatable(smi)
-    paths.update(phase_dataset(smi, numerics))
-    paths.update(phase_viper(smi))
+    smi = _timed("build", phase_build)
+    kernels = _timed("kernels correlation", phase_kernels_correlation) + [
+        _timed("kernels correlation backward",
+               phase_kernels_correlation_backward),
+        _timed("kernels windowed", phase_kernels_windowed)]
+    paths = {"main": _timed("main", phase_main, smi),
+             "window": _timed("window", phase_main, smi, dcn_window=WINDOW),
+             "train": _timed("train", phase_train, smi),
+             "fuse": _timed("fuse", phase_detector, smi, "PanopticFuse"),
+             "track": _timed("track", phase_detector, smi, "PanopticTrack"),
+             "aug": _timed("aug", phase_aug, smi),
+             "ohem train": _timed("ohem train", phase_train, smi,
+                                  steps=OHEM_STEPS, sampler=OHEM)}
+    _timed("small", phase_small)
+    _timed("small window", phase_small, dcn_window=WINDOW)
+    _timed("small fuse", phase_small, kind="PanopticFuse")
+    _timed("small track", phase_small, kind="PanopticTrack")
+    _timed("small att", phase_small, refine_type="att")
+    _timed("small aug", phase_small_aug)
+    _timed("small train", phase_small_train)
+    _timed("small ohem train", phase_small_train, sampler=dict(OHEM, num=32))
+    paths.update(_timed("zoo", phase_zoo, smi,
+                        ("mask_rcnn", "cascade_mask_rcnn", "htc")))
+    paths.update({f"zoo {k}": v for k, v in _timed(
+        "zoo others", phase_zoo, smi, ZOO_OTHERS).items()})
+    _timed("small zoo", phase_small_zoo)
+    paths.update(_timed("zoo train", phase_zoo_train, smi,
+                        ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
+    _timed("small zoo train", phase_small_zoo_train)
+    _timed("train repeatable", phase_train_repeatable, smi)
+    paths.update(_timed(
+        "dataset (robustness and detection eval included)", phase_dataset,
+        smi, numerics, then=(lambda fx: phase_robustness(smi, fx),
+                             lambda fx: phase_detection_eval(smi, fx))))
+    paths.update(_timed("viper", phase_viper, smi))
     # launches: the run of the kernel's own path; by path: every path's run
     own = {"corr_bf16_tc": "main", "corr_f32": "train",
            "corr_backward": "train", "dcw_fused": "window"}

@@ -215,9 +215,11 @@ def _dataset(fix):
             assert x.dtype == y.dtype
             np.testing.assert_array_equal(x, y)
         assert a[2] == b[2]
-    for t in ("CocoDataset", "CityscapesDataset"):
-        with pytest.raises(ValueError, match="not ported"):
-            build_dataset(dict(train, type=t))
+    for t in ("CocoDataset", "CityscapesDataset"):  # the image-level types
+        ours, theirs = build_dataset(dict(train, type=t)), j_build_dataset(
+            dict(train, type=t))
+        assert type(ours).__name__ == type(theirs).__name__ == t
+        assert ours.CLASSES == theirs.CLASSES and len(ours) == len(theirs)
 
 
 def _eval_ipq(tmp_path, fix, capsys):

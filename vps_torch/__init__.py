@@ -4,7 +4,8 @@ training, for one NVIDIA H100.
 Layout mirrors ``vps_tpu`` (``ops/``, ``models/``, ``models/flow/``,
 ``models/detectors/``, ``core/``, ``train/``, ``utils/``, ``data/``,
 ``eval/``) so every module has a counterpart under the same name; the
-entry points are ``tools/`` (train, test_vpq, eval_vpq), the configs
+entry points are ``tools/`` (train, test_vpq, eval_vpq, eval_ipq and the
+detection evaluation's tools), the configs
 ``configs/``, and hand-written Hopper kernels live in ``csrc/``. The
 package imports torch, numpy, cv2, PIL and the standard library only.
 """

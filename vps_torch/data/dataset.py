@@ -1,11 +1,13 @@
-"""The video datasets (the port's copy of the JAX package's
-``data/dataset.py``): Cityscapes-VPS and VIPER; the image-level Coco and
-Cityscapes datasets are not ported. COCO-style json with per-instance
+"""The datasets (the port's copy of the JAX package's ``data/dataset.py``):
+the video datasets Cityscapes-VPS and VIPER, and the image-level COCO and
+Cityscapes detection datasets over the same machinery (the reference frame
+is the image itself). COCO-style json with per-instance
 ``inst_id``; training pairs each frame with a random reference frame at one
 of ``offsets`` ids away (+-1 id is +-5 real frames in Cityscapes-VPS); test
 enumerates all frames with ref = previous frame, resetting every
 ``nframes_span_test``. ``build_dataset`` dispatches on ``type`` through
-``DATASETS``.
+``DATASETS``, which also holds the Pascal-VOC-style XML datasets of
+``vps_torch.data.xml_style``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from vps_torch.data.transforms import (
     TestPipeline,
     TrainPipeline,
 )
+from vps_torch.data.xml_style import VOCDataset, WIDERFaceDataset, XMLDataset
 
 try:
     import cv2
@@ -250,10 +253,30 @@ class ViperDataset(CityscapesVPSDataset):
     CLASSES = None  # from the json's categories
 
 
-# build_dataset's types; mmdet's image-level CocoDataset and
-# CityscapesDataset are not ported
-DATASETS = {cls.__name__: cls for cls in (CityscapesVPSDataset, ViperDataset)}
-UNPORTED = ("CocoDataset", "CityscapesDataset")
+class CocoDataset(CityscapesVPSDataset):
+    """Image-level COCO-json detection dataset (mmdet's datasets/coco.py):
+    the same machinery with the image as its own reference frame, so the
+    single-frame detectors (and the panoptic ones without flow) take its
+    samples unchanged. The class names are the json's categories."""
+
+    CLASSES = None  # from the json's categories
+
+    def __init__(self, ann_file, img_prefix, **kw):
+        kw.setdefault("offsets", (0,))  # the reference frame is the image
+        super().__init__(ann_file, img_prefix, **kw)
+
+
+class CityscapesDataset(CocoDataset):
+    """Image-level Cityscapes detection dataset (mmdet's
+    datasets/cityscapes.py): CocoDataset with the 8 thing classes."""
+
+    CLASSES = CLASSES
+
+
+# build_dataset's types
+DATASETS = {cls.__name__: cls for cls in (
+    CityscapesVPSDataset, ViperDataset, CocoDataset, CityscapesDataset,
+    XMLDataset, VOCDataset, WIDERFaceDataset)}
 
 
 class ConcatDataset:
@@ -302,6 +325,5 @@ def build_dataset(cfg: Dict[str, Any]):
         cfg.pop("pipeline", None)
     if t not in DATASETS:
         raise ValueError(
-            f"dataset type {t!r} is not ported" if t in UNPORTED else
             f"unknown dataset type {t!r}; the port has {sorted(DATASETS)}")
     return DATASETS[t](**cfg)
