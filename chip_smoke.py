@@ -61,7 +61,7 @@ Phases, each printing its own line of numbers:
   5. dataset  -- the user's workflow from files: the synthetic Cityscapes-VPS
                  fixture at 1024x2048 and its GT (the repo's prepare_data
                  scripts), vps_torch.tools.train on the port's
-                 configs/cityscapes/fusetrack.py (R-50, f32, 4 steps),
+                 configs/cityscapes/fusetrack.py (R-50, f32, 2 steps),
                  tools.test_vpq at half-flow and tools.eval_vpq, in this
                  process; the train loader alone with 0 and 2 workers; fails
                  on a non-finite loss, a skipped step, a frame without an
@@ -71,7 +71,7 @@ Phases, each printing its own line of numbers:
                  checkpoint, scored by tools.eval_vpq. On its fixture and
                  checkpoint, before they are removed:
      robustness -- tools.test_robustness at half-flow over the first val
-                 video's 4 frames, clean and under gaussian_noise,
+                 video's first 2 frames, clean and under gaussian_noise,
                  motion_blur, fog and jpeg_compression at severities 1 and
                  5 (detections from score 0.001, the box-eval threshold of
                  mmdetection's HTC), then tools.robustness_eval; prints
@@ -82,20 +82,20 @@ Phases, each printing its own line of numbers:
                  for bit, under inference_policy.
      detection eval -- the val fixture as an image-level CityscapesDataset
                  at Cityscapes' test scale (2048, 1024), the zoo's Mask
-                 R-CNN with 9 classes on seeded weights
+                 R-CNN and RetinaNet with 9 classes on seeded weights
                  (mmdetection's configs/cityscapes/
-                 mask_rcnn_r50_fpn_1x_cityscapes.py); its detections scored
-                 by tools.coco_eval and tools.voc_eval, then the GT as its
-                 own detections, which must read AP 1.0000 at every IoU
-                 threshold and mAP 1.0000, and tools.coco_error_analysis
+                 mask_rcnn_r50_fpn_1x_cityscapes.py); their detections
+                 scored by tools.coco_eval and tools.voc_eval, then the GT
+                 as its own detections, which must read AP 1.0000 at every
+                 IoU threshold and mAP 1.0000, and tools.coco_error_analysis
                  --no-plots on it, whose C75 must read 1.0 for each class
                  with a gt; prints images/s and the evaluator's host
                  seconds; fails on a port kernel launched.
   6. viper    -- VIPER from files to VPQ: a synthetic fixture in VIPER's
                  format at 1080x1920 (tests/viper_fixture.py: 23 classes,
-                 things 13..22; 1 train video of 4 frames, 2 val videos of
+                 things 13..22; 1 train video of 2 frames, 2 val videos of
                  15), vps_torch.tools.train on the port's
-                 configs/viper/fusetrack.py (R-50, f32, 4 steps),
+                 configs/viper/fusetrack.py (R-50, f32, 2 steps),
                  tools.test_vpq at half-flow streamed (--chunk 4 --streams
                  2) and frame by frame (--chunk 1), VIPER's evaluator at
                  windows 1, 5, 10, 15 and tools.eval_ipq, in this process;
@@ -141,6 +141,26 @@ Phases, each printing its own line of numbers:
                  same state under train_policy, bitwise equal in every loss
                  term and parameter (else the first op to differ is named),
                  and the policy's cost a FuseTrack step.
+  9. single stage -- RetinaNet, FCOS (caffe-style R-50), RepPoints
+                 (moment) and SSD300 (VGG-16; the SingleStageDetector type)
+                 at full width, written from the public mmdetection v1.0
+                 configs (81 classes, test_cfg word for word, seeded
+                 weights; ResNet's C3-C5 into an FPN whose P6 and P7 are
+                 max pools, vps_tpu's nearest build of start_level=1 and
+                 add_extra_convs; every key without a counterpart printed):
+                 the zoo's seeded 800x1333 image padded to 800x1344 (SSD300
+                 a seeded 300x300 one), 1 warm-up and 5 timed images each
+                 ("single stage <name>"), the zoo's checks and one profiled
+                 image (RepPoints' DCNs in the range reppoints_dcn); the
+                 tiny configs of the CPU tests on the card against the CPU
+                 ("small single stage"); the four trained at full width as
+                 "zoo train" (1 warm-up + 2 steps, 12 seeded gt of 16,
+                 train_policy, "single stage train <name>"); and their tiny
+                 loss one step on the card against the CPU ("small single
+                 stage train": equal assignments, SSD's kept hard negatives
+                 included, terms within rel 1e-3, gradients within
+                 SMALL_ZOO_GRAD_TOL, SSD300's VGG convs in float64). No port
+                 kernel runs on these paths: each fails on one launched.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
@@ -154,9 +174,11 @@ computes it.
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import pickle
+import re
 import shutil
 import statistics
 import subprocess
@@ -190,11 +212,11 @@ OHEM = dict(type="OHEMSampler", num=512, pos_fraction=0.25)
 OHEM_STEPS = 4
 TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
 # the "viper" phase: a synthetic fixture in VIPER's format at its frame size
-# (1 train video of 4 frames, 2 val videos of 15: VIPER's largest VPQ
+# (1 train video of 2 frames, 2 val videos of 15: VIPER's largest VPQ
 # window); the test scale (2048, 1024) takes the frame to 1820x1024, padded
 # to 1824x1024; LiteFlowNetCorr's input is its 1/4 level
 VIPER_H, VIPER_W = 1080, 1920
-VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 4, 2, 15
+VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 2, 2, 15
 VIPER_CHUNK, VIPER_STREAMS = 4, 2
 VIPER_TEST = (1024, 1824)
 VIPER_CORR = (1, VIPER_TEST[0] // 4, VIPER_TEST[1] // 4, 256)
@@ -1118,10 +1140,10 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
                   then=()):
     """The user's workflow from a dataset on disk, through the port's entry
     points in this process: the synthetic Cityscapes-VPS fixture
-    (``vps_torch.data.synth``: 1 train video of 4 frames, 2 val videos of 4
+    (``vps_torch.data.synth``: 1 train video of 2 frames, 2 val videos of 4
     frames, h x w), the val GT through the repo's prepare_data scripts, then
     ``vps_torch.tools.train`` on the port's configs/cityscapes/fusetrack.py
-    (R-50, f32, the config's own pipelines; data paths, 1 epoch of 4 steps
+    (R-50, f32, the config's own pipelines; data paths, 1 epoch of 2 steps
     and a log line a step overridden), ``vps_torch.tools.test_vpq`` on its
     checkpoint at ``half-flow`` and ``vps_torch.tools.eval_vpq``; and
     eval_vpq with the GT itself as the submission, which must read 100;
@@ -1141,7 +1163,7 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
     on_card = torch.device(device).type == "cuda"
     repo = os.path.dirname(os.path.abspath(__file__))
     # 4 frames a val video: VPQ's largest window, which 3 would leave empty
-    train_frames, val_videos, val_frames = 4, 2, 4
+    train_frames, val_videos, val_frames = 2, 2, 4
     os.makedirs(WORK_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
         t0 = time.perf_counter()
@@ -1304,13 +1326,13 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
     return dict(got, **later)
 
 
-ROBUST_FRAMES = 4  # the first val video
+ROBUST_FRAMES = 2  # the first two frames of the first val video
 ROBUST_CORRUPTIONS = ("gaussian_noise", "motion_blur", "fog",
                       "jpeg_compression")
 ROBUST_SEVERITIES = (1, 5)
 # box mAP ranks the detections down to a low score: 0.001, the score_thr
 # of mmdetection's HTC test_cfg (zoo_configs); the panoptic fusion's 0.6,
-# and 0.05 too, keep none of the 4 train steps' detections on clean frames
+# and 0.05 too, kept none of a 4-step checkpoint's detections on clean frames
 ROBUST_CONFIG = """
 _base_ = r"{base}"
 test_cfg = dict(panoptic=dict(score_thresh=0.001))
@@ -1403,8 +1425,8 @@ def phase_robustness(smi, fx, device="cuda"):
           f"{summary['rPC']:.4f}; the clean run against predict under "
           f"inference_policy: {same} of {num_fg * ROBUST_FRAMES} class lists "
           f"bitwise equal ({ndet} detections); bbox_mAP from "
-          f"{len(report)} runs of random weights trained 4 steps is a check "
-          f"of the chain, not a quality number")
+          f"{len(report)} runs of random weights trained a few steps is a "
+          f"check of the chain, not a quality number")
     print(f"robustness: phase {time.perf_counter() - start:.1f}s wall: "
           f"test_robustness {tool_s:.1f}s, robustness_eval {summary_s:.3f}s, "
           f"the predict replay (detector build, checkpoint, "
@@ -1439,10 +1461,13 @@ CITYSCAPES_SCALE = (2048, 1024)
 
 def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
     """Box evaluation on the dataset phase's val fixture (``fx``) read as
-    an image-level CityscapesDataset: the zoo's Mask R-CNN with 9 classes,
-    seeded weights, at ``scale``, over every val image; its per-class
-    detections to a pickle, scored by ``vps_torch.tools.coco_eval`` and
-    ``voc_eval``; then the ground truth as its own detections (score 1),
+    an image-level CityscapesDataset: the zoo's Mask R-CNN and RetinaNet,
+    each with 9 classes (the fixture's 8 and the background), seeded
+    weights, at ``scale``, over every val image; each one's per-class
+    detections (at least one) to a pickle, scored by
+    ``vps_torch.tools.coco_eval`` and ``voc_eval`` (numbers in [0, 1]; their
+    values on seeded weights are not a gate); then the ground truth as its
+    own detections (score 1),
     which must read AP 1.0000 at every IoU threshold and mAP 1.0000, and
     ``coco_error_analysis --no-plots`` on it as COCO results, whose C75
     must read 1.0 for each class with a gt. Fails on a port kernel
@@ -1470,31 +1495,42 @@ def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
                                              img=fx["val_img"],
                                              scale=tuple(scale)))
     dataset = build_dataset(Config.fromfile(cfg_path).data["val"])
-    t0 = time.perf_counter()
     source, model, _, test_cfg = zoo_configs()["mask_rcnn"]
     model = dict(model, bbox_head=dict(model["bbox_head"], num_classes=9),
                  mask_head=dict(model["mask_head"], num_classes=9))
-    det = random_init_(build_detector(_zoo_port_cfg(model)[0],
-                                      test_cfg=test_cfg, device=device),
-                       seed=SEED)
-    _sync(device)
-    build_s = time.perf_counter() - t0
-    dets, n, load_s, pred_s = [], len(dataset), [], []
-    with inference_policy():
-        _reset_counts()
+    r_source, r_model, _, r_test, _ = single_stage_configs()["retinanet"]
+    r_model = dict(r_model, bbox_head=dict(r_model["bbox_head"],
+                                           num_classes=9))
+    models = {"Mask R-CNN": (source, _zoo_port_cfg(model)[0], test_cfg),
+              "RetinaNet": (r_source, _single_port_cfg(r_model)[0], r_test)}
+    runs, n = {}, len(dataset)
+    for key, (src, cfg, tcfg) in models.items():
         t0 = time.perf_counter()
-        for idx in range(n):
-            t1 = time.perf_counter()
-            img, _, meta = dataset.prepare_test(idx)
-            t2 = time.perf_counter()
-            out = det.predict(torch.as_tensor(img, device=device)[None])
-            dets.append(test_robustness.det_lists(out, 8, meta["scale_factor"]))
-            load_s.append(t2 - t1)
-            pred_s.append(time.perf_counter() - t2)
+        det = random_init_(build_detector(cfg, test_cfg=tcfg, device=device),
+                           seed=SEED)
         _sync(device)
-        loop_s = time.perf_counter() - t0
-        ips = n / loop_s
-        launches = _counts()
+        build_s = time.perf_counter() - t0
+        dets, load_s, pred_s = [], [], []
+        with inference_policy():
+            _reset_counts()
+            t0 = time.perf_counter()
+            for idx in range(n):
+                t1 = time.perf_counter()
+                img, _, meta = dataset.prepare_test(idx)
+                t2 = time.perf_counter()
+                out = det.predict(torch.as_tensor(img, device=device)[None])
+                dets.append(test_robustness.det_lists(out, 8,
+                                                      meta["scale_factor"]))
+                load_s.append(t2 - t1)
+                pred_s.append(time.perf_counter() - t2)
+            _sync(device)
+            loop_s = time.perf_counter() - t0
+            launches = _counts()
+        runs[key] = dict(source=src, kind=type(det).__name__, dets=dets,
+                         build_s=build_s, loop_s=loop_s, load_s=load_s,
+                         pred_s=pred_s, launches=launches,
+                         ndet=sum(len(c) for d in dets for c in d))
+        del det
     gt_dets = []
     for idx in range(n):
         ann = dataset.get_ann_info(idx)
@@ -1503,7 +1539,8 @@ def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
              np.ones(((ann["labels"] == c + 1).sum(), 1), np.float32)], 1)
             for c in range(8)])
     scores, eval_s = {}, {}
-    for key, results in (("model", dets), ("gt", gt_dets)):
+    for key, results in [(k, r["dets"]) for k, r in runs.items()] + [
+            ("the GT", gt_dets)]:
         pkl = os.path.join(tmp, f"{key}.pkl")
         with open(pkl, "wb") as f:
             pickle.dump(results, f)
@@ -1528,17 +1565,18 @@ def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
                       for a in gt_json["annotations"]
                       if a["category_id"] == c["id"]})
     c75 = {name: analysis[name]["C75"]["allarea"] for name in with_gt}
-    ndet = sum(len(c) for d in dets for c in d)
 
-    print(f"detection eval: {type(det).__name__} from mmdetection v1.0 "
-          f"{source} with 9 classes (configs/cityscapes/"
-          f"mask_rcnn_r50_fpn_1x_cityscapes.py), seeded weights, "
-          f"CityscapesDataset over the val fixture ({n} images at "
-          f"img_scale {tuple(scale)}), {ips:.3f} images/s (loading, predict, "
-          f"detections to the host; the first image {pred_s[0]:.3f} s of "
-          f"predict, the others' median {statistics.median(pred_s[1:]):.4f} "
-          f"s, loading a median {statistics.median(load_s):.4f} s), {ndet} "
-          f"detections, launches {launches}; card: {smi}")
+    for r in runs.values():
+        print(f"detection eval: {r['kind']} from mmdetection v1.0 "
+              f"{r['source']} with 9 classes (as configs/cityscapes/"
+              f"mask_rcnn_r50_fpn_1x_cityscapes.py), seeded weights, "
+              f"CityscapesDataset over the val fixture ({n} images at "
+              f"img_scale {tuple(scale)}), {n / r['loop_s']:.3f} images/s "
+              f"(loading, predict, detections to the host; the first image "
+              f"{r['pred_s'][0]:.3f} s of predict, the others' median "
+              f"{statistics.median(r['pred_s'][1:]):.4f} s, loading a median "
+              f"{statistics.median(r['load_s']):.4f} s), {r['ndet']} "
+              f"detections, launches {r['launches']}; card: {smi}")
     for key, (coco, voc) in scores.items():
         print(f"detection eval: {key} as detections: coco_eval "
               + " ".join(f"{k} {v:.4f}" for k, v in coco.items())
@@ -1551,22 +1589,31 @@ def phase_detection_eval(smi, fx, device="cuda", scale=CITYSCAPES_SCALE):
           + " ".join(f"{t} {analysis['allclass'][t]['allarea']:.4f}"
                      for t in ("C75", "C50", "Loc", "BG", "FN")))
     print(f"detection eval: phase {time.perf_counter() - start:.1f}s wall: "
-          f"Mask R-CNN build and seeded init {build_s:.1f}s, {n} images "
-          f"(loading, predict) {loop_s:.1f}s, coco_eval and voc_eval twice "
+          + ", ".join(f"{k} build and seeded init {r['build_s']:.1f}s, {n} "
+                      f"images (loading, predict) {r['loop_s']:.1f}s"
+                      for k, r in runs.items())
+          + f", coco_eval and voc_eval {len(scores)} times "
           f"{sum(eval_s.values()):.3f}s, coco_error_analysis "
           f"{analysis_s:.3f}s")
-    coco_gt, voc_gt = scores["gt"]
+    coco_gt, voc_gt = scores["the GT"]
     if not all(v == 1.0 for v in coco_gt.values()) or voc_gt != 1.0:
         raise AssertionError(f"detection eval: the GT as detections reads "
                              f"{coco_gt}, voc mAP {voc_gt}, not 1.0")
     if not with_gt or any(v != 1.0 for v in c75.values()):
         raise AssertionError(f"detection eval: the GT's C75 {c75}, not 1.0")
-    if ndet == 0:
-        raise AssertionError("detection eval: no detection")
-    if on_card and launches != _want():
-        raise AssertionError(f"detection eval: port kernel launches "
-                             f"{launches}: the zoo's path runs none")
-    return {"detection eval": launches}
+    for key, r in runs.items():
+        coco, voc = scores[key]
+        ok = (r["ndet"] > 0 and 0.0 <= voc <= 1.0
+              and all(0.0 <= v <= 1.0 for v in coco.values()))
+        if not ok:
+            raise AssertionError(f"detection eval: {key}: {r['ndet']} "
+                                 f"detections, coco_eval {coco}, voc {voc}")
+        if on_card and r["launches"] != _want():
+            raise AssertionError(f"detection eval: {key}: port kernel "
+                                 f"launches {r['launches']}: its path runs "
+                                 f"none")
+    return {"detection eval": runs["Mask R-CNN"]["launches"],
+            "detection eval retinanet": runs["RetinaNet"]["launches"]}
 
 
 VIPER_CONFIG = """
@@ -1613,9 +1660,9 @@ def phase_viper(smi, device="cuda", h=VIPER_H, w=VIPER_W,
     """VIPER from files to VPQ, through the port's entry points in this
     process: a synthetic fixture in VIPER's format (tests/viper_fixture.py:
     23 classes, things 13..22, instance and panoptic GT json, colour PNGs;
-    1 train video of 4 frames, 2 val videos of ``val_frames``) at h x w;
+    1 train video of 2 frames, 2 val videos of ``val_frames``) at h x w;
     ``vps_torch.tools.train`` on the port's configs/viper/fusetrack.py
-    (R-50, f32, the loader in this process, 1 epoch of 4 steps);
+    (R-50, f32, the loader in this process, 1 epoch of 2 steps);
     ``tools.test_vpq`` at half-flow streamed (``--chunk 4 --streams 2``) and
     frame by frame (``--chunk 1``), whose pickles and artifacts must be
     byte-equal; VIPER's evaluator (``evaluate_panoptic_from_files``) on the
@@ -1630,7 +1677,7 @@ def phase_viper(smi, device="cuda", h=VIPER_H, w=VIPER_W,
     from vps_torch.eval.unified import get_unified_pan_result
     from vps_torch.eval.viper import (VIPER_WINDOWS,
                                       evaluate_panoptic_from_files,
-                                      viper_vpq_compute)
+                                      viper_vpq_windows)
     from vps_torch.tools import eval_ipq, test_vpq, train
     from vps_torch.utils.checkpoint import latest_checkpoint
 
@@ -1726,8 +1773,8 @@ def phase_viper(smi, device="cuda", h=VIPER_H, w=VIPER_W,
              [..., ::-1]) for ann, im in zip(gt["annotations"], gt["images"]))]
         videos = [gt_frames[i:i + val_frames]
                   for i in range(0, len(gt_frames), val_frames)]
-        gt_pq = {nf: viper_vpq_compute(videos, cats, nf)[0]["All"]["pq"]
-                 for nf in windows}
+        gt_pq = {nf: r["All"]["pq"] for nf, r in
+                 viper_vpq_windows(videos, cats, windows).items()}
         ipq = eval_ipq.main(["--submit_dir", summary["output_dir"],
                              "--truth_dir", fix["gt_dir"],
                              "--pan_gt_json_file", fix["gt_json"]])
@@ -2751,7 +2798,7 @@ def _zoo_check(name, out, det, h, w):
         valid = out["proposal_valid"]
         boxes = out["proposals"]
     else:
-        cap = det.test_cfg["rcnn"]["max_per_img"]
+        cap = det.test_cfg.get("rcnn", det.test_cfg)["max_per_img"]
         shapes = {"det_bboxes": (cap, 5), "det_labels": (cap,),
                   "det_valid": (cap,)}
         if "mask_logits" in out:
@@ -3073,9 +3120,13 @@ def _zoo_train_args(det, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD):
         args.pop("gt_semantic_seg")
     if not hasattr(det, "bbox_head"):  # the RPN detector
         args.pop("gt_labels")
-    elif det.rpn_head is None:
+    elif getattr(det, "rpn_head", False) is None:  # FastRCNN
         args["proposals"], args["proposal_valid"] = proposals
     return args
+
+
+def _trunk(det):
+    return "VGG-16" if type(det.backbone).__name__ == "SSDVGG" else "R-50 FPN"
 
 
 def _zoo_optimizer(det):
@@ -3097,17 +3148,20 @@ def _zoo_train_step(det, args, opt, gen):
 
 
 def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
-                   steps=None):
+                   steps=None, make=None, stages=ZOO_TRAIN_STAGES,
+                   label=None):
     """Train ``name`` at full width on the seeded image and gt under
     train_policy: 1 warm-up and ``steps`` - 1 timed steps (host clock,
-    each ending in a synchronize), then one profiled step. Returns (launch
-    counts of the steps, the detector)."""
+    each ending in a synchronize), then one profiled step by the named
+    ranges ``stages``. ``make(name, device)`` builds the detector
+    (_zoo_train_det: the R-CNN zoo's). Returns (launch counts of the steps,
+    the detector)."""
     import torch
     from vps_torch.utils.numerics import train_policy
 
     steps = steps or (4 if name in ZOO_TRAIN_LONG else 3)
     t0 = time.perf_counter()
-    det, source, notes = _zoo_train_det(name, device)
+    det, source, notes = (make or _zoo_train_det)(name, device)
     args = _zoo_train_args(det, device, proposals, hw, pad)
     opt = _zoo_optimizer(det)
     before = {n: p.detach().clone() for n, p in det.named_parameters()}
@@ -3115,7 +3169,7 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     init_s = time.perf_counter() - t0
     on_card = torch.device(device).type == "cuda"
     gen = torch.Generator(device=device).manual_seed(SEED)
-    label = f"zoo train {name}"
+    label = label or f"zoo train {name}"
     hist, times = [], []
     with train_policy():
         if on_card:
@@ -3130,14 +3184,15 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
         launches = _counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
         syncs = _zoo_profile(det, lambda: _zoo_train_step(det, args, opt, gen),
-                             ZOO_TRAIN_STAGES, label, unit="step")
+                             stages, label, unit="step")
     trainable = {n for n, p in det.named_parameters() if p.requires_grad}
     moved = {n for n, p in det.named_parameters()
              if not torch.equal(p.detach(), before[n])}
     bad = sorted({k for r in hist for k, v in r.items() if not np.isfinite(v)})
     timed = times[1:]
     print(f"{label}: {type(det).__name__} from mmdetection v1.0 {source}, "
-          f"R-50 FPN, 81 classes, {hw[0]}x{hw[1]} padded to {pad[0]}x{pad[1]}, "
+          f"{_trunk(det)}, 81 classes, {hw[0]}x{hw[1]} padded to "
+          f"{pad[0]}x{pad[1]}, "
           f"gt {ZOO_TRAIN_THINGS} of {ZOO_TRAIN_GT}, f32 TF32 off, "
           f"train_policy, lr {ZOO_LR:g}, init {init_s:.1f}s, first step "
           f"{times[0]:.3f}s, {statistics.mean(timed):.4f} s/step over "
@@ -3332,6 +3387,500 @@ def phase_small_zoo_train(device="cuda"):
                                  f"card and cpu")
 
 
+# ---------------------------------------------------------------------------
+# The single-stage detectors (RetinaNet, FCOS, RepPoints, SSD300) at full
+# width, their training, and the tiny ones on the card against the CPU
+# ---------------------------------------------------------------------------
+
+SSD_HW = (300, 300)  # ssd300_coco's input: no padding
+SINGLE_NAMES = ("retinanet", "fcos", "reppoints", "ssd300")
+SINGLE_STAGES = ("backbone_fpn", "bbox_head", "reppoints_dcn", "bbox_dets")
+SINGLE_TRAIN_STAGES = ("backbone_fpn", "bbox_head", "reppoints_dcn",
+                       "bbox_loss")
+SINGLE_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+_FOCAL = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+              loss_weight=1.0)
+_DENSE_TEST = dict(nms_pre=1000, min_bbox_size=0, score_thr=0.05,
+                   nms=dict(type="nms", iou_thr=0.5), max_per_img=100)
+_DENSE_ASSIGNER = dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                       neg_iou_thr=0.4, min_pos_iou=0, ignore_iof_thr=-1)
+_DENSE_TRAIN = dict(assigner=_DENSE_ASSIGNER, allowed_border=-1,
+                    pos_weight=-1, debug=False)
+
+
+def single_stage_configs():
+    """{name: (source config, model dict, train_cfg, test_cfg, (hw, pad))},
+    written from the mmdetection v1.0 configs named, as zoo_configs."""
+    def resnet(style="pytorch"):
+        b = dict(type="ResNet", depth=50, num_stages=4,
+                 out_indices=(0, 1, 2, 3), frozen_stages=1, style=style)
+        if style == "caffe":
+            b["norm_cfg"] = dict(type="BN", requires_grad=False)
+        return b
+
+    fpn = dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+               out_channels=256, start_level=1, add_extra_convs=True,
+               num_outs=5)
+    gn = dict(type="GN", num_groups=32, requires_grad=True)
+    smooth = dict(type="SmoothL1Loss", beta=0.11, loss_weight=1.0)
+    big = (ZOO_HW, ZOO_PAD)
+    return {
+        "retinanet": ("configs/retinanet_r50_fpn_1x.py", dict(
+            type="RetinaNet", pretrained="torchvision://resnet50",
+            backbone=resnet(), neck=fpn, bbox_head=dict(
+                type="RetinaHead", num_classes=81, in_channels=256,
+                stacked_convs=4, feat_channels=256, octave_base_scale=4,
+                scales_per_octave=3, anchor_ratios=[0.5, 1.0, 2.0],
+                anchor_strides=[8, 16, 32, 64, 128],
+                target_means=[.0, .0, .0, .0],
+                target_stds=[1.0, 1.0, 1.0, 1.0], loss_cls=_FOCAL,
+                loss_bbox=smooth)), _DENSE_TRAIN, _DENSE_TEST, big),
+        "fcos": ("configs/fcos/fcos_r50_caffe_fpn_gn_1x_4gpu.py", dict(
+            type="FCOS", pretrained="open-mmlab://resnet50_caffe",
+            backbone=resnet("caffe"),
+            neck=dict(fpn, extra_convs_on_inputs=False,
+                      relu_before_extra_convs=True),
+            bbox_head=dict(
+                type="FCOSHead", num_classes=81, in_channels=256,
+                stacked_convs=4, feat_channels=256,
+                strides=[8, 16, 32, 64, 128], loss_cls=_FOCAL,
+                loss_bbox=dict(type="IoULoss", loss_weight=1.0),
+                loss_centerness=dict(type="CrossEntropyLoss",
+                                     use_sigmoid=True, loss_weight=1.0))),
+            _DENSE_TRAIN, _DENSE_TEST, big),
+        "reppoints": ("configs/reppoints/reppoints_moment_r50_fpn_1x.py", dict(
+            type="RepPointsDetector", pretrained="torchvision://resnet50",
+            backbone=resnet(), neck=dict(fpn, norm_cfg=gn), bbox_head=dict(
+                type="RepPointsHead", num_classes=81, in_channels=256,
+                feat_channels=256, point_feat_channels=256, stacked_convs=3,
+                num_points=9, gradient_mul=0.1,
+                point_strides=[8, 16, 32, 64, 128], point_base_scale=4,
+                norm_cfg=gn, loss_cls=_FOCAL,
+                loss_bbox_init=dict(smooth, loss_weight=0.5),
+                loss_bbox_refine=smooth, transform_method="moment")),
+            dict(init=dict(assigner=dict(type="PointAssigner", scale=4,
+                                         pos_num=1),
+                           allowed_border=-1, pos_weight=-1, debug=False),
+                 refine=dict(assigner=_DENSE_ASSIGNER, allowed_border=-1,
+                             pos_weight=-1, debug=False)),
+            _DENSE_TEST, big),
+        "ssd300": ("configs/ssd300_coco.py", dict(
+            type="SingleStageDetector", pretrained="open-mmlab://vgg16_caffe",
+            backbone=dict(type="SSDVGG", input_size=300, depth=16,
+                          with_last_pool=False, ceil_mode=True,
+                          out_indices=(3, 4), out_feature_indices=(22, 34),
+                          l2_norm_scale=20),
+            neck=None, bbox_head=dict(
+                type="SSDHead", input_size=300,
+                in_channels=(512, 1024, 512, 256, 256, 256), num_classes=81,
+                anchor_strides=(8, 16, 32, 64, 100, 300),
+                basesize_ratio_range=(0.15, 0.9),
+                anchor_ratios=([2], [2, 3], [2, 3], [2, 3], [2], [2]),
+                target_means=(.0, .0, .0, .0),
+                target_stds=(0.1, 0.1, 0.2, 0.2))),
+            dict(assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                               neg_iou_thr=0.5, min_pos_iou=0.,
+                               ignore_iof_thr=-1, gt_max_assign_all=False),
+                 smoothl1_beta=1., allowed_border=-1, pos_weight=-1,
+                 neg_pos_ratio=3, debug=False),
+            dict(nms=dict(type="nms", iou_thr=0.45), min_bbox_size=0,
+                 score_thr=0.02, max_per_img=200), (SSD_HW, SSD_HW)),
+    }
+
+
+# source keys the single-stage detectors (as vps_tpu's) have no field for,
+# by detector type and (where, key): what the port does instead
+_NECK_DROPPED = {
+    ("backbone", "norm_cfg"): _NO_COUNTERPART["norm_cfg"],
+    ("neck", "start_level"): "vps_tpu's FPN has none: it takes C3-C5 "
+                             "(ResNet out_indices=(1, 2, 3), in_channels "
+                             "512, 1024, 2048), the levels start_level=1 "
+                             "asks for",
+    ("neck", "add_extra_convs"): "vps_tpu's FPN has no extra convs: P6 and "
+                                 "P7 are stride-2 max pools (kernel 1) of "
+                                 "P5 and P6, at the strides 64 and 128 "
+                                 "asked",
+    ("neck", "extra_convs_on_inputs"): "no extra convs (add_extra_convs)",
+    ("neck", "relu_before_extra_convs"): "no extra convs (add_extra_convs)",
+    ("neck", "norm_cfg"): "vps_tpu's FPN has no GN: plain convs",
+}
+_SINGLE_DROPPED = {
+    "RetinaNet": {
+        ("bbox_head", "octave_base_scale"): "RetinaNet's anchors are fixed "
+                                            "in vps_tpu: octave base 4, as "
+                                            "asked",
+        ("bbox_head", "scales_per_octave"): "fixed: 3 scales an octave, as "
+                                            "asked",
+        ("bbox_head", "anchor_ratios"): "fixed: 0.5, 1, 2, as asked",
+        ("bbox_head", "anchor_strides"): "fixed: 8-128, as asked",
+        ("bbox_head", "target_means"): "not read: RetinaNet decodes with "
+                                       "means 0 and stds 1 (vps_tpu), the "
+                                       "values asked",
+        ("bbox_head", "target_stds"): "not read (target_means)"},
+    "FCOS": {("bbox_head", "strides"): "fixed: 8-128, as asked"},
+    "RepPointsDetector": {
+        ("bbox_head", "norm_cfg"): "vps_tpu's RepPointsHead has no GN: its "
+                                   "towers are conv + ReLU"},
+    "SingleStageDetector": {
+        ("backbone", "depth"): "VGG-16 is the only SSDVGG",
+        ("backbone", "with_last_pool"): "pool5 is SSD's 3x3 stride-1 pool, "
+                                        "as asked",
+        ("backbone", "ceil_mode"): "floor mode, as vps_tpu's pools: the "
+                                   "levels are 37, 18, 9, 5, 3, 1 a side "
+                                   "(8096 anchors, not 8732)",
+        ("backbone", "out_indices"): "the levels are L2Norm(conv4_3), fc7 "
+                                     "and the extras, as asked"},
+}
+# the losses vps_tpu's single-stage losses compute, by detector and key
+_SINGLE_LOSSES = {
+    "loss_cls": _FOCAL,
+    "loss_bbox": dict(type="SmoothL1Loss", beta=0.11, loss_weight=1.0),
+    ("FCOS", "loss_bbox"): dict(type="IoULoss", loss_weight=1.0),
+    "loss_centerness": dict(type="CrossEntropyLoss", use_sigmoid=True,
+                            loss_weight=1.0),
+    "loss_bbox_init": dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                           loss_weight=0.5),
+    "loss_bbox_refine": dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                             loss_weight=1.0),
+}
+# train_cfg notes a detector's config needs: what each reads
+_SINGLE_TRAIN_NOTES = {
+    "retinanet": ["train_cfg.assigner: vps_tpu's RetinaNet reads "
+                  "pos_iou_thr, neg_iou_thr, min_pos_iou at train_cfg's top "
+                  "level; its defaults 0.5, 0.4, 0 are the values asked"],
+    "fcos": ["train_cfg.assigner: not read, FCOS assigns points by its "
+             "regress ranges, as mmdet's FCOSHead"],
+    "reppoints": ["train_cfg.init.assigner: vps_tpu reads init.scale and "
+                  "init.pos_num, absent here: the head's point_base_scale "
+                  "4 and 1, the values asked; refine.assigner read as "
+                  "asked"],
+    "ssd300": ["train_cfg.assigner.min_pos_iou=0. and gt_max_assign_all="
+               "False: ssd_loss's fixed values, as asked"],
+}
+
+
+def _single_port_cfg(model):
+    """The port's config of an mmdet single-stage model dict: ResNet's C3-C5
+    into the FPN, the keys without a counterpart dropped, each listed with
+    what the port does instead, and the losses it trains."""
+    notes = ["pretrained: not loaded, seeded random weights (random_init_)"]
+    kind = model["type"]
+    dropped = {**_NECK_DROPPED, **_SINGLE_DROPPED[kind]}
+    out = dict(model)
+    out.pop("pretrained", None)
+    if out.get("neck"):
+        out["backbone"] = dict(out["backbone"], out_indices=(1, 2, 3))
+        out["neck"] = dict(out["neck"], in_channels=[512, 1024, 2048])
+        notes.append("backbone.out_indices=(0, 1, 2, 3), neck.in_channels="
+                     "[256, 512, 1024, 2048]: (1, 2, 3) and [512, 1024, "
+                     "2048], the C3-C5 the FPN reads")
+    for where in ("backbone", "neck", "bbox_head"):
+        if not out.get(where):
+            continue
+        d = dict(out[where])
+        for key in sorted(d):
+            if key.startswith("loss_"):
+                spec = d.pop(key)
+                fixed = _SINGLE_LOSSES.get((kind, key), _SINGLE_LOSSES[key])
+                differ = {k: (spec.get(k), fixed.get(k))
+                          for k in set(spec) | set(fixed)
+                          if spec.get(k) != fixed.get(k)}
+                notes.append(f"{where}.{key}: " + (
+                    f"dropped: vps_tpu's loss is the one asked "
+                    f"({spec['type']})" if not differ else
+                    "dropped: the port trains vps_tpu's loss, which has "
+                    + ", ".join(f"{k}={v[1]:.4g} where this config asks "
+                                f"{v[0]}" for k, v in sorted(differ.items()))))
+            elif (where, key) in dropped:
+                d.pop(key)
+                notes.append(f"{where}.{key}: {dropped[where, key]}")
+        out[where] = d
+    if kind == "SingleStageDetector":
+        notes.append("bbox_head.in_channels: the backbone's levels', the "
+                     "values asked; SingleStageDetector: the SSDHead picks "
+                     "SSD")
+    return out, notes
+
+
+def _single_det(name, device, train=False):
+    """``name``'s detector of single_stage_configs (with its train_cfg when
+    ``train``), seeded random weights; returns it, the source config and
+    the notes on keys without a counterpart."""
+    from vps_torch.models.detectors import build_detector, random_init_
+
+    source, model, train_cfg, test_cfg, _ = single_stage_configs()[name]
+    cfg, notes = _single_port_cfg(model)
+    det = random_init_(build_detector(
+        cfg, train_cfg=train_cfg if train else None, test_cfg=test_cfg,
+        device=device), seed=SEED)
+    if train:
+        notes = notes + _SINGLE_TRAIN_NOTES[name]
+    return det, source, notes
+
+
+def _single_sizes(name, sizes=None):
+    """(hw, pad) of ``name``: its config's, or ``sizes`` for the R-50 ones
+    (a CPU rehearsal's smaller image)."""
+    hw, pad = single_stage_configs()[name][4]
+    return (hw, pad) if sizes is None or name == "ssd300" else sizes
+
+
+def phase_single_stage(smi, names=SINGLE_NAMES, device="cuda",
+                       images=ZOO_IMAGES, sizes=None):
+    """Each single-stage detector at full width with seeded weights on the
+    seeded image (800x1333 padded to 800x1344; SSD300 300x300): 1 warm-up
+    and ``images`` timed images, the checks of _zoo_check, one more image
+    profiled by the named ranges (RepPoints' two DCNs a level in
+    ``reppoints_dcn``). Fails on a port kernel launched. Returns the
+    launch counts by path."""
+    import torch
+
+    paths = {}
+    on_card = torch.device(device).type == "cuda"
+    for name in names:
+        hw, pad = _single_sizes(name, sizes)
+        t0 = time.perf_counter()
+        det, source, notes = _single_det(name, device)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        img = _zoo_image(device, hw, pad)
+        det.predict(img)  # warm-up
+        _sync(device)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(images):
+            out = det.predict(img)
+        _sync(device)
+        ips = images / (time.perf_counter() - t0)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+        nvalid = _zoo_check(name, out, det, *pad)
+        label = f"single stage {name}"
+        syncs = _zoo_profile(det, lambda: det.predict(img), SINGLE_STAGES,
+                             label)
+        print(f"{label}: {type(det).__name__} from mmdetection v1.0 "
+              f"{source}, {_trunk(det)}, 81 classes, {hw[0]}x{hw[1]} padded "
+              f"to {pad[0]}x{pad[1]}, init {init_s:.1f}s, {ips:.3f} images/s "
+              f"over {images} images after 1 warm-up, peak mem "
+              f"{peak / 2**30:.2f} GiB, valid detections {nvalid}, host "
+              f"syncs an image {syncs}, launches {launches}; TF32 off; "
+              f"card: {smi}")
+        print(f"{label}: source keys without a counterpart: "
+              + "; ".join(notes))
+        if on_card and launches != _want():
+            raise AssertionError(f"{label}: port kernel launches {launches}: "
+                                 f"the single-stage paths run none of them")
+        paths[label] = launches
+        del det
+    return paths
+
+
+def phase_single_stage_train(smi, names=SINGLE_NAMES, device="cuda",
+                             steps=SINGLE_TRAIN_STEPS, sizes=None):
+    """Each single-stage detector trained at full width (_zoo_train_run's
+    loop, train_policy, the port's Optimizer as the zoo's) on the seeded
+    image and 12 seeded gt of 16 (SSD300 at 300x300). Returns the launch
+    counts by path."""
+    paths = {}
+    for name in names:
+        hw, pad = _single_sizes(name, sizes)
+        label = f"single stage train {name}"
+        launches, _ = _zoo_train_run(
+            name, smi, device, hw=hw, pad=pad, steps=steps,
+            make=lambda n, d: _single_det(n, d, train=True),
+            stages=SINGLE_TRAIN_STAGES, label=label)
+        paths[label] = launches
+    return paths
+
+
+def _tiny_single_cfgs():
+    """tests/single_parity.py's tiny configs: R-18, a 32-wide FPN of five
+    levels from stride 8, one conv a tower, 5 classes (FCOS 64 wide for
+    GroupNorm(32)); SSD300 at its fixed widths."""
+    trunk = dict(backbone=dict(type="ResNet", depth=18, frozen_stages=-1,
+                               out_indices=(1, 2, 3)),
+                 neck=dict(type="FPN", in_channels=(128, 256, 512),
+                           out_channels=32, num_outs=5))
+    head = dict(num_classes=5, in_channels=32, feat_channels=32,
+                stacked_convs=1)
+    return {
+        "RetinaNet": dict(trunk, bbox_head=dict(head, type="RetinaHead")),
+        "FCOS": dict(trunk, bbox_head=dict(head, type="FCOSHead",
+                                           feat_channels=64)),
+        "RepPointsDetector": dict(trunk, bbox_head=dict(
+            head, type="RepPointsHead", point_feat_channels=32)),
+        "SSD": dict(backbone=dict(type="SSDVGG", input_size=300),
+                    bbox_head=dict(type="SSDHead", num_classes=5,
+                                   input_size=300)),
+    }
+
+
+_TINY_SINGLE_TRAIN = {
+    "RetinaNet": dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0),
+    "FCOS": None,
+    "RepPointsDetector": dict(init=dict(scale=4, pos_num=1), refine=dict(
+        assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.4, min_pos_iou=0.0))),
+    "SSD": dict(assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.5),
+                smoothl1_beta=1.0, neg_pos_ratio=3),
+}
+
+
+def _tiny_single_pair(kind, device, train=False):
+    """The CPU detector (seeded weights; the saturating classifiers of
+    RetinaNet, RepPoints and SSD x0.25, as phase_small_zoo's, so that
+    probabilities do not tie in f32) and its copy on ``device``, and the
+    seeded image (64x64; SSD 300x300) on the CPU."""
+    import torch
+    from vps_torch.models.detectors import build_detector, random_init_
+
+    cfg = dict(_tiny_single_cfgs()[kind], type=kind)
+    kw = dict(test_cfg=dict(nms_pre=40, score_thr=0.02, max_per_img=20),
+              train_cfg=_TINY_SINGLE_TRAIN[kind] if train else None)
+    cpu = random_init_(build_detector(cfg, device="cpu", **kw), seed=SEED + 1)
+    with torch.no_grad():
+        for n, m in cpu.named_modules():
+            if isinstance(m, torch.nn.Conv2d) and re.search(
+                    r"retina_cls$|reppoints_cls_out$|^bbox_head\.cls_convs\."
+                    r"\d+$", n):
+                m.weight.mul_(0.25)
+    gpu = build_detector(cfg, device=device, **kw)
+    gpu.load_state_dict(cpu.state_dict(), strict=True)
+    side = 300 if kind == "SSD" else 64
+    rng = np.random.RandomState(SEED + 13)
+    img = torch.from_numpy(rng.randn(1, side, side, 3).astype(np.float32))
+    return cpu, gpu, img
+
+
+def phase_small_single_stage(device="cuda"):
+    """The four single-stage detectors at the CPU tests' tiny shapes on one
+    seeded image: the card against the port's CPU path with the same
+    weights, under phase_small_zoo's bars (equal det_valid and det_labels,
+    boxes and scores within 2e-2, at least one detection)."""
+    for kind in _tiny_single_cfgs():
+        cpu, gpu, img = _tiny_single_pair(kind, device)
+        want = cpu.predict(img)
+        got = {k: v.cpu() for k, v in gpu.predict(img.to(device)).items()}
+        same = all(np.array_equal(got[k].numpy(), want[k].numpy())
+                   for k in ("det_valid", "det_labels"))
+        err = float((got["det_bboxes"] - want["det_bboxes"]).abs().max())
+        n = int(want["det_valid"].sum())
+        print(f"small single stage: {kind} card vs cpu: dets {n} "
+              f"{'equal' if same else 'DIFFER'}, box/score max err "
+              f"{err:.2e} (tol 2e-2)")
+        if not same or n == 0 or err > 2e-2:
+            raise AssertionError(f"small single stage {kind} disagrees "
+                                 f"between card and cpu")
+
+
+def _single_choices(kind):
+    """(module, attribute, what to keep of its result) of each assignment
+    ``kind``'s loss makes, in call order."""
+    import vps_torch.models.anchor_heads as heads
+    import vps_torch.models.detectors.single_stage as single
+    import vps_torch.models.reppoints as reppoints
+
+    def inds(r):
+        return r.assigned_gt_inds
+
+    return {"RetinaNet": [(single, "max_iou_assign", inds)],
+            "FCOS": [(heads, "fcos_target", lambda r: r[0])],
+            "RepPointsDetector": [(reppoints, "point_assign", inds),
+                                  (reppoints, "max_iou_assign", inds)],
+            "SSD": [(heads, "max_iou_assign", inds),
+                    (heads, "hard_negatives", lambda r: r)]}[kind]
+
+
+def phase_small_single_stage_train(device="cuda"):
+    """The four single-stage detectors' loss at the tiny shapes, one step on
+    the card against the CPU path, the same weights and gt, both under
+    train_policy: every assignment (MaxIoU, point, FCOS's targets, SSD's
+    kept hard negatives) equal, every term within rel 1e-3 and every
+    gradient within SMALL_ZOO_GRAD_TOL of the tensor's largest. SSD300's
+    VGG convs through conv5_3 are held in a float64 run on both sides
+    (f32 rounding flips the sign of a few of their ~10M pre-activations
+    near zero, which moves their gradients by up to ~1e-2; the rest of its
+    f32 gradients are held as they are)."""
+    import torch
+    from vps_torch.utils.numerics import train_policy
+
+    boxes = np.asarray([[4, 4, 28, 30], [30, 8, 60, 40], [10, 34, 40, 60],
+                        [0, 0, 0, 0]], np.float32)
+    gt = dict(gt_labels=np.asarray([1, 2, 4, 0], np.int32),
+              gt_valid=np.asarray([1, 1, 1, 0], bool))
+    for kind in _tiny_single_cfgs():
+        cpu, gpu, img = _tiny_single_pair(kind, device, train=True)
+        scale = np.float32(300 / 64) if kind == "SSD" else np.float32(1)
+        runs = {}
+        for dev, det, dt in (("cpu", cpu, torch.float32),
+                             ("card", gpu, torch.float32),
+                             ("cpu64", cpu, torch.float64),
+                             ("card64", gpu, torch.float64)):
+            if dt == torch.float64:
+                if kind != "SSD":
+                    continue
+                det = copy.deepcopy(det).double()
+            det.zero_grad(set_to_none=True)
+            sel = []
+            saved = []
+            for mod, attr, pick in _single_choices(kind):
+                fn = getattr(mod, attr)
+                saved.append((mod, attr, fn))
+
+                def wrapped(*a, _fn=fn, _pick=pick, **k):
+                    res = _fn(*a, **k)
+                    sel.append(_pick(res).cpu())
+                    return res
+
+                setattr(mod, attr, wrapped)
+            args = {k: torch.from_numpy(v).to(det.device)
+                    for k, v in gt.items()}
+            args["gt_bboxes"] = torch.from_numpy(boxes * scale).to(
+                det.device, dt)
+            try:
+                with train_policy():
+                    losses = det.loss(img.to(det.device, dt), **args)
+                    sum(losses.values()).backward()
+            finally:
+                for mod, attr, fn in saved:
+                    setattr(mod, attr, fn)
+            runs[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                         {n: p.grad.cpu().double()
+                          for n, p in det.named_parameters()
+                          if p.grad is not None}, sel)
+        (want, gw, ws), (got, gg, gs) = runs["cpu"], runs["card"]
+        same_sel = len(ws) == len(gs) > 0 and all(
+            torch.equal(a, b) for a, b in zip(ws, gs))
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+
+        def worst(a, b, names):
+            gmax = max(float(g.abs().max()) for g in a.values())
+            return max(float((b[n] - a[n]).abs().max())
+                       / (float(a[n].abs().max())
+                          + 1e-6 * gmax / SMALL_ZOO_GRAD_TOL) for n in names)
+
+        trunk = {n for n in gw if n.startswith("backbone.features.")}
+        gerr = worst(gw, gg, set(gw) - trunk)
+        line = (f"small single stage train: {kind} card vs cpu: "
+                f"{len(want)} terms, worst rel err {rel:.2e} (tol 1e-3), "
+                f"assignments {len(ws)} {'equal' if same_sel else 'DIFFER'}, "
+                f"{len(gw) - len(trunk)} gradients worst err {gerr:.2e} of "
+                f"the tensor's largest (tol {SMALL_ZOO_GRAD_TOL:g})")
+        if trunk:
+            g64 = worst(runs["cpu64"][1], runs["card64"][1], trunk)
+            f32 = worst(gw, gg, trunk)
+            line += (f"; VGG's {len(trunk)} conv gradients in float64 "
+                     f"{g64:.2e} (tol {SMALL_ZOO_GRAD_TOL:g}), in f32 "
+                     f"{f32:.2e} (not a gate)")
+            gerr = max(gerr, g64)
+        print(line)
+        if (set(got) != set(want) or not same_sel or rel > 1e-3
+                or set(gg) != set(gw) or gerr > SMALL_ZOO_GRAD_TOL):
+            raise AssertionError(f"small single stage train {kind} disagrees "
+                                 f"between card and cpu")
+
+
 def _repeat_steps(label, det, step, make_opt, seed=SEED):
     """Two train steps of ``det`` from the same weights, optimizer state
     (after one warm-up step: momentum set) and generator seed, under
@@ -3340,8 +3889,6 @@ def _repeat_steps(label, det, step, make_opt, seed=SEED):
     output differs in two forwards (every module hooked), else the first
     parameter whose gradient differs; then fails. ``step(opt, gen)`` runs
     one step and returns the loss dict. Returns the optimizer."""
-    import copy
-
     import torch
     from vps_torch.utils.numerics import train_policy
 
@@ -3515,6 +4062,10 @@ def main() -> int:
                         ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
     _timed("small zoo train", phase_small_zoo_train)
     _timed("train repeatable", phase_train_repeatable, smi)
+    paths.update(_timed("single stage", phase_single_stage, smi))
+    _timed("small single stage", phase_small_single_stage)
+    paths.update(_timed("single stage train", phase_single_stage_train, smi))
+    _timed("small single stage train", phase_small_single_stage_train)
     paths.update(_timed(
         "dataset (robustness and detection eval included)", phase_dataset,
         smi, numerics, then=(lambda fx: phase_robustness(smi, fx),

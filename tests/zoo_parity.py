@@ -289,18 +289,20 @@ def train_pair(kind, cfg, train_cfg, sample, seed=0, jitter=None,
 GRAD_TOL = 1e-4
 
 
-def assert_train_match(r, keys, min_sampled=2):
+def assert_train_match(r, keys, min_sampled=2, rel=None):
     """The same loss keys (``keys``); every term finite and within rel 1e-4
-    (SELECTION_FREE) or 1e-3 (after a sampled selection) of JAX's; every
-    sampler call with equal slots and validity, at least ``min_sampled``
-    calls; each parameter's gradient of the total within GRAD_TOL (a
-    parameter the port gives none has none in JAX either)."""
+    (SELECTION_FREE) or 1e-3 (after a sampled selection) of JAX's, or within
+    ``rel`` when given; every sampler call with equal slots and validity, at
+    least ``min_sampled`` calls; each parameter's gradient of the total
+    within GRAD_TOL (a parameter the port gives none has none in JAX
+    either)."""
     import pytest
 
     jl, tl = r["jl"], r["tl"]
+    bar = rel
     assert set(tl) == set(jl) == set(keys), (sorted(tl), sorted(jl))
     for k, v in jl.items():
-        rel = 1e-4 if k in SELECTION_FREE else 1e-3
+        rel = bar or (1e-4 if k in SELECTION_FREE else 1e-3)
         assert np.isfinite(tl[k]), k
         assert tl[k] == pytest.approx(v, rel=rel, abs=1e-6), (k, tl[k], v)
     assert len(r["jsel"]) == len(r["tsel"]) >= min_sampled

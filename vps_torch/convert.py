@@ -15,7 +15,9 @@ Layout transforms (inverse of the torch -> JAX converter):
 The R-CNN zoo's flax submodules are named after their attributes
 (``backbone_m``, ``bbox_head_m``, ``bbox_heads_0``, ...): ``_torch_key``
 maps ``<name>_m`` to mmdet's ``<name>`` and a cascade's ``<head>s_<i>`` to
-``<head>.<i>`` before the rules below are read.
+``<head>.<i>`` before the rules below are read; the single-stage
+detectors' ``head_m`` becomes mmdet's ``bbox_head``, a deformable conv's
+(k, k, Cin, Cout) weight its (Cout, Cin, k, k).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+
+from vps_torch.models.ssd_vgg import FC6_INDEX, FC7_INDEX, vgg_feature_index
 
 ROI_HW = 7  # the bbox / track heads' first FC consumes 7x7 ROI windows
 
@@ -166,6 +170,28 @@ RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
      linear_w),
     (r"extra_neck/refine_att/spatial/Conv_0", "extra_neck.refine_att.spatial",
      _WB, conv_w),
+    # the single-stage detectors' heads (vps_tpu's head_m): RetinaHead,
+    # FCOSHead, SSDHead and RepPointsHead under mmdet's bbox_head names
+    (r"head/(cls|reg)_conv(\d+)/Conv_0", "bbox_head.{0}_convs.{1}.conv", _WB,
+     conv_w),
+    (r"head/(cls|reg)_gn(\d+)", "bbox_head.{0}_convs.{1}.gn", _GN, None),
+    (r"head/(retina_cls|retina_reg|fcos_cls|fcos_reg|fcos_centerness)"
+     r"(?:/Conv_0)?", "bbox_head.{0}", _WB, conv_w),
+    (r"head/scale(\d+)", "bbox_head.scales.{0}", {"scale": "scale"}, None),
+    (r"head/(cls|reg)(\d+)/Conv_0", "bbox_head.{0}_convs.{1}", _WB, conv_w),
+    (r"head/(pts_init_conv|pts_init_out|pts_refine_out)(?:/Conv_0)?",
+     "bbox_head.reppoints_{0}", _WB, conv_w),
+    (r"head/cls_out", "bbox_head.reppoints_cls_out", _WB, conv_w),
+    (r"head", "bbox_head", {"cls_dcn_weight": "reppoints_cls_conv.weight",
+                            "refine_dcn_weight":
+                                "reppoints_pts_refine_conv.weight",
+                            "moment_transfer": "moment_transfer"}, conv_w),
+    # SSDVGG: mmdet's features.<torch index>, extra.<i>, l2_norm
+    (r"backbone/conv(\d)_(\d)/Conv_0", "backbone.features.{vgg}", _WB, conv_w),
+    (r"backbone/fc6/Conv_0", f"backbone.features.{FC6_INDEX}", _WB, conv_w),
+    (r"backbone/fc7/Conv_0", f"backbone.features.{FC7_INDEX}", _WB, conv_w),
+    (r"backbone/extra(\d+)/Conv_0", "backbone.extra.{0}", _WB, conv_w),
+    (r"backbone/l2_norm", "backbone.l2_norm", {"weight": "weight"}, None),
     (rf"flownet2/({_FLOW_NETS})/(predict_flow\d)/Conv_0", "flownet2.{0}.{1}",
      _WB, conv_w),
     (rf"flownet2/({_FLOW_NETS})/(\w+)/Conv_0", "flownet2.{0}.{1}.0", _WB, conv_w),
@@ -205,15 +231,19 @@ def _rule_key(path: Tuple[str, ...]):
                 extra["dc"] = 3 * int(groups[0])
             if "{gn}" in tmpl:
                 extra["gn"] = 3 * int(groups[0]) + 1
+            if "{vgg}" in tmpl:
+                extra["vgg"] = vgg_feature_index(int(groups[0]),
+                                                 int(groups[1]))
             key = tmpl.format(*groups, **extra) + "." + leaf_map[leaf]
-            return key, (fn if leaf in ("kernel", "weight") else None)
+            return key, (fn if leaf_map[leaf].endswith("weight") else None)
     raise KeyError(f"no torch name for flax variable {'/'.join(path)}")
 
 
 def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack,
-    PanopticFuse or PanopticTrack (either fuse neck, either refine type), or
-    of a two-stage or cascade R-CNN of the zoo, as numpy arrays -> the
+    PanopticFuse or PanopticTrack (either fuse neck, either refine type), of
+    a two-stage or cascade R-CNN of the zoo, or of RetinaNet, FCOS, SSD or
+    RepPointsDetector, as numpy arrays -> the
     port's mmdet-named state_dict (float32 tensors), accepted by the same
     detector's ``load_state_dict(strict=True)``: a tower the tree lacks has
     no keys."""

@@ -1,5 +1,6 @@
-"""MaxIoU assignment (port of vps_tpu/core/assigner.py: ``AssignResult`` and
-``max_iou_assign``), static shape and masked.
+"""MaxIoU and point assignment (port of vps_tpu/core/assigner.py:
+``AssignResult``, ``max_iou_assign`` and RepPoints' ``point_assign``),
+static shape and masked.
 
 Semantics of mmdet's MaxIoUAssigner: -1 neutral, 0 negative, k + 1 assigned
 to gt k, with the low-quality match step (gt_max_assign_all: ties go to the
@@ -62,3 +63,45 @@ def max_iou_assign(bboxes, gt_bboxes, pos_iou_thr: float, neg_iou_thr: float,
     if gt_pids is not None:
         pids = torch.where(pos, gt_pids[gt_idx], torch.zeros_like(gt_idx))
     return AssignResult(assigned, max_overlaps, labels, pids)
+
+
+def point_assign(points, gt_bboxes, scale: float = 4.0, pos_num: int = 3,
+                 gt_labels=None, gt_valid=None) -> AssignResult:
+    """RepPoints' PointAssigner: points (N, 3) = (x, y, stride); each valid
+    gt claims its ``pos_num`` nearest points (distance from the gt's centre
+    in units of its width and height) on the level its size maps to; a
+    point claimed by several gts goes to the last. A point's rank for a gt
+    is the number of points strictly closer, as JAX's (N, N, G) comparison
+    counts it, here from each gt's sorted distances (``searchsorted`` on
+    the left), so memory stays O(N G). Ties share a rank; points off the
+    gt's level have infinite distance and are never claimed."""
+    g = gt_bboxes.shape[0]
+    dev = points.device
+    if gt_valid is None:
+        gt_valid = torch.ones(g, dtype=torch.bool, device=dev)
+    px, py, stride = points[:, 0], points[:, 1], points[:, 2]
+    plvl = torch.log2(stride.clamp(min=1.0))
+    cx = (gt_bboxes[:, 0] + gt_bboxes[:, 2]) * 0.5
+    cy = (gt_bboxes[:, 1] + gt_bboxes[:, 3]) * 0.5
+    gw = (gt_bboxes[:, 2] - gt_bboxes[:, 0]).clamp(min=1e-6)
+    gh = (gt_bboxes[:, 3] - gt_bboxes[:, 1]).clamp(min=1e-6)
+    # gt level: log2 of sqrt(area) / scale, clipped to the points' levels
+    glvl = torch.floor(torch.log2(torch.sqrt(gw * gh) / scale + 1e-12))
+    glvl = torch.minimum(torch.maximum(glvl, plvl.min()), plvl.max())
+    same_lvl = (plvl[:, None] - glvl[None, :]).abs() < 0.5  # (N, G)
+    dist = torch.sqrt(((px[:, None] - cx[None, :]) / gw[None, :]) ** 2
+                      + ((py[:, None] - cy[None, :]) / gh[None, :]) ** 2)
+    dist = torch.where(same_lvl & gt_valid[None, :], dist,
+                       torch.full_like(dist, float("inf")))
+    cols = dist.t().contiguous()  # (G, N)
+    rank = torch.searchsorted(cols.sort(-1).values, cols, side="left").t()
+    claim = (rank < pos_num) & torch.isfinite(dist)
+    last_gt = g - 1 - claim.flip(1).int().argmax(1)
+    assigned = torch.where(claim.any(1), last_gt + 1,
+                           torch.zeros_like(last_gt))
+    pos = assigned > 0
+    gt_idx = (assigned - 1).clamp(0, g - 1)
+    labels = None
+    if gt_labels is not None:
+        labels = torch.where(pos, gt_labels[gt_idx], torch.zeros_like(gt_idx))
+    return AssignResult(assigned, dist.min(1).values, labels, None)

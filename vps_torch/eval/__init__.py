@@ -12,5 +12,6 @@ from vps_torch.eval.viper import (  # noqa: F401
     evaluate_panoptic_from_files,
     evaluate_panoptic_viper,
     viper_vpq_compute,
+    viper_vpq_windows,
 )
 from vps_torch.eval.vpq import vpq_compute, vpq_eval_all  # noqa: F401

@@ -25,7 +25,7 @@ import numpy as np
 
 from vps_torch.eval.pq import PQStat
 from vps_torch.eval.unified import encode_panoptic_video
-from vps_torch.eval.vpq import vpq_compute_video
+from vps_torch.eval.vpq import vpq_compute_video, vpq_frame_stats
 
 SIZE_THR = 32 * 32
 VIPER_WINDOWS = (1, 5, 10, 15)
@@ -73,14 +73,18 @@ def viper_vpq_compute(
     nframes: int,
     output_dir: str = None,
     save_name: str = "viper",
+    stats=None,
 ):
     """One window size over per-video frame tuples (gt_json, pred_json,
     gt_pan_rgb, pred_pan_rgb): consecutive-frame windows, the SIZE_THR
-    skip. Returns (results by All / Things / Stuff, per-class results)."""
+    skip. ``stats``: each video's ``vpq_frame_stats(video, SIZE_THR)``,
+    when several window sizes share them. Returns (results by All / Things
+    / Stuff, per-class results)."""
     stat = PQStat()
-    for video in videos:
+    for i, video in enumerate(videos):
         stat += vpq_compute_video(video, categories, nframes,
-                                  size_thr=SIZE_THR)
+                                  size_thr=SIZE_THR,
+                                  stats=None if stats is None else stats[i])
     results = {}
     per_class = {}
     for name, isthing in (("All", None), ("Things", True), ("Stuff", False)):
@@ -94,6 +98,20 @@ def viper_vpq_compute(
             nframes, results, per_class,
         )
     return results, per_class
+
+
+def viper_vpq_windows(videos, categories, windows=VIPER_WINDOWS,
+                      output_dir: str = None, save_name: str = "viper"):
+    """``viper_vpq_compute`` for each window size, each frame's counts
+    computed once. Returns {nframes: results with ``per_class``}."""
+    stats = [vpq_frame_stats(video, SIZE_THR) for video in videos]
+    out = {}
+    for nf in windows:
+        results, per_class = viper_vpq_compute(
+            videos, categories, nf, output_dir=output_dir,
+            save_name=save_name, stats=stats)
+        out[nf] = dict(results, per_class=per_class)
+    return out
 
 
 def evaluate_panoptic_from_files(
@@ -164,14 +182,8 @@ def evaluate_panoptic_from_files(
         ])
 
     save_name = save_name or os.path.join(output_dir, "viper")
-    all_results = {}
-    for nf in windows:
-        results, per_class = viper_vpq_compute(
-            videos, categories, nf, output_dir=output_dir,
-            save_name=os.path.basename(save_name),
-        )
-        all_results[nf] = dict(results, per_class=per_class)
-    return all_results
+    return viper_vpq_windows(videos, categories, windows, output_dir,
+                             os.path.basename(save_name))
 
 
 def evaluate_panoptic_viper(
@@ -201,11 +213,5 @@ def evaluate_panoptic_viper(
             for (gt_json, gt_pan), pred_json, pred_pan
             in zip(gt_frames, pred_anns, pred_pans)
         ])
-    all_results = {}
-    for nf in windows:
-        results, per_class = viper_vpq_compute(
-            videos, categories, nf, output_dir=output_dir,
-            save_name=save_name,
-        )
-        all_results[nf] = dict(results, per_class=per_class)
-    return all_results
+    return viper_vpq_windows(videos, categories, windows, output_dir,
+                             save_name)

@@ -37,62 +37,87 @@ def _collect_segms(json_ann: dict) -> Dict[int, dict]:
     return out
 
 
+def _frame_stats(gt_json, pred_json, gt_pan, pred_pan, size_thr):
+    """One frame's part of every window that holds it: its segments (the
+    predictions' areas recounted from the png, as the reference does), its
+    (gt, pred) id pairs with their pixel counts, and with ``size_thr`` its
+    gt ids with theirs."""
+    gt_id_map = _rgb_to_id(gt_pan)
+    pred_id_map = _rgb_to_id(pred_pan)
+    gt_segms = _collect_segms(gt_json)
+    pred_segms = _collect_segms(pred_json)
+    labels, cnts = np.unique(pred_id_map, return_counts=True)
+    declared = set(pred_segms)
+    for label, cnt in zip(labels.tolist(), cnts.tolist()):
+        if label == VOID:
+            continue
+        if label not in pred_segms:
+            raise KeyError(f"segment id {label} in PNG but not in JSON")
+        pred_segms[label]["area"] = cnt
+        declared.discard(label)
+    if declared:
+        raise KeyError(f"segment ids {sorted(declared)} in JSON but not PNG")
+    pairs = np.unique(gt_id_map.astype(np.uint64) * OFFSET
+                      + pred_id_map.astype(np.uint64), return_counts=True)
+    gts = (np.unique(gt_id_map, return_counts=True) if size_thr > 0
+           else None)
+    return gt_segms, pred_segms, pairs, gts
+
+
+def vpq_frame_stats(frames, size_thr: int = 0):
+    """Each frame's part of every window that holds it, for
+    ``vpq_compute_video``'s ``stats``: computed once, shared by several
+    window sizes."""
+    return [_frame_stats(*f, size_thr) for f in frames]
+
+
+def _window_counts(parts):
+    """Per-frame (values, counts) of one window summed by value, the values
+    ascending: np.unique over the window's stacked frames."""
+    values, inv = np.unique(np.concatenate([v for v, _ in parts]),
+                            return_inverse=True)
+    counts = np.zeros(values.shape[0], np.int64)
+    np.add.at(counts, inv, np.concatenate([c for _, c in parts]))
+    return values, counts
+
+
 def vpq_compute_video(
     frames: Sequence[Tuple[dict, dict, np.ndarray, np.ndarray]],
     categories: Dict[int, dict],
     nframes: int,
     size_thr: int = 0,
+    stats=None,
 ) -> PQStat:
     """frames: per annotated frame (gt_json, pred_json, gt_pan_rgb,
     pred_pan_rgb). Slides a window of `nframes` over the video.
 
     ``size_thr``: VIPER's small-GT skip (GT tubes smaller than the
     threshold neither match nor count as FN); 0 = the Cityscapes-VPS
-    protocol, which has no size filter."""
+    protocol, which has no size filter.
+
+    Each frame's id maps and pair counts are computed once (``stats``:
+    ``vpq_frame_stats(frames, size_thr)`` when given) and summed into every
+    window that holds it; the sums equal the counts over the window's
+    stacked frames, in the same (ascending) order."""
     stat = PQStat()
+    if len(frames) < nframes:
+        return stat
+    per_frame = (vpq_frame_stats(frames, size_thr) if stats is None
+                 else stats)
     for start in range(0, len(frames) - nframes + 1):
-        window = frames[start : start + nframes]
-        gt_ids = []
-        pred_ids = []
+        window = per_frame[start : start + nframes]
         vid_gt_segms: Dict[int, dict] = {}
         vid_pred_segms: Dict[int, dict] = {}
-        for gt_json, pred_json, gt_pan, pred_pan in window:
-            gt_id_map = _rgb_to_id(gt_pan)
-            pred_id_map = _rgb_to_id(pred_pan)
-            gt_segms = _collect_segms(gt_json)
-            pred_segms = _collect_segms(pred_json)
-            # recompute pred areas from the png (sanity, as the reference)
-            labels, cnts = np.unique(pred_id_map, return_counts=True)
-            declared = set(pred_segms)
-            for label, cnt in zip(labels.tolist(), cnts.tolist()):
-                if label == VOID:
-                    continue
-                if label not in pred_segms:
-                    raise KeyError(
-                        f"segment id {label} in PNG but not in JSON"
-                    )
-                pred_segms[label]["area"] = cnt
-                declared.discard(label)
-            if declared:
-                raise KeyError(f"segment ids {sorted(declared)} in JSON but not PNG")
-            gt_ids.append(gt_id_map)
-            pred_ids.append(pred_id_map)
-            for k, v in gt_segms.items():
-                if k in vid_gt_segms:
-                    vid_gt_segms[k]["area"] += v["area"]
-                else:
-                    vid_gt_segms[k] = v
-            for k, v in pred_segms.items():
-                if k in vid_pred_segms:
-                    vid_pred_segms[k]["area"] += v["area"]
-                else:
-                    vid_pred_segms[k] = v
+        for gt_segms, pred_segms, _, _ in window:
+            for vid, segms in ((vid_gt_segms, gt_segms),
+                               (vid_pred_segms, pred_segms)):
+                for k, v in segms.items():
+                    if k in vid:
+                        vid[k]["area"] += v["area"]
+                    else:
+                        vid[k] = dict(v)
 
-        gt_tube = np.stack(gt_ids).astype(np.uint64)
-        pred_tube = np.stack(pred_ids).astype(np.uint64)
-        pairs, inters = np.unique(
-            gt_tube * OFFSET + pred_tube, return_counts=True
-        )
+        pairs, inters = _window_counts([w[2] for w in window])
         gt_pred_map = {
             (int(p // OFFSET), int(p % OFFSET)): int(c)
             for p, c in zip(pairs.tolist(), inters.tolist())
@@ -100,7 +125,7 @@ def vpq_compute_video(
 
         gt_small = set()
         if size_thr > 0:
-            labels, cnts = np.unique(gt_tube, return_counts=True)
+            labels, cnts = _window_counts([w[3] for w in window])
             gt_small = {
                 int(l) for l, c in zip(labels.tolist(), cnts.tolist())
                 if c < size_thr

@@ -1,5 +1,6 @@
 """Detectors of the port: the VPSNet family (panoptic.py), the two-stage
-R-CNNs (two_stage.py) and the cascades (cascade.py), all registered in
+R-CNNs (two_stage.py), the cascades (cascade.py) and the single-stage
+detectors (single_stage.py), all registered in
 ``vps_torch.registry.DETECTORS`` and built by ``build_detector``."""
 
 from vps_torch.models.builder import build_detector
@@ -14,6 +15,12 @@ from vps_torch.models.detectors.panoptic import (
     run_video_streams,
 )
 from vps_torch.models.detectors.panoptic_ops import TrackState, empty_track_state
+from vps_torch.models.detectors.single_stage import (
+    FCOS,
+    SSD,
+    RepPointsDetector,
+    RetinaNet,
+)
 from vps_torch.models.detectors.two_stage import (
     RPN,
     DoubleHeadRCNN,
@@ -24,9 +31,10 @@ from vps_torch.models.detectors.two_stage import (
     MaskScoringRCNN,
 )
 
-__all__ = ["CascadeRCNN", "DoubleHeadRCNN", "FastRCNN", "FasterRCNN",
-           "GridRCNN", "HybridTaskCascade", "MaskRCNN", "MaskScoringRCNN",
-           "PanopticFuse", "PanopticFuseTrack", "PanopticTrack", "RPN",
+__all__ = ["FCOS", "SSD", "CascadeRCNN", "DoubleHeadRCNN", "FastRCNN",
+           "FasterRCNN", "GridRCNN", "HybridTaskCascade", "MaskRCNN",
+           "MaskScoringRCNN", "PanopticFuse", "PanopticFuseTrack",
+           "PanopticTrack", "RPN", "RepPointsDetector", "RetinaNet",
            "TrackState", "build_detector", "empty_track_state",
            "make_frame_step", "predict_video", "random_init_",
            "run_video_streams"]

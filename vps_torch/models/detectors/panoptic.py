@@ -921,6 +921,8 @@ def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
 
 # the box heads' classifiers: bbox_head.fc_cls, a cascade's bbox_head.{i}.fc_cls
 _CLS = r"^bbox_head\.(\d+\.)?fc_cls$"
+# the single-stage heads' sigmoid classifiers
+_SIGMOID_CLS = r"^bbox_head\.(retina_cls|fcos_cls|reppoints_cls_out)$"
 
 
 def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
@@ -932,23 +934,37 @@ def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
     block after block), small DCN offsets, and a wide classifier so some
     proposals clear the 0.6 panoptic score threshold (and, for the R-CNN
     zoo's detectors, their 81-way softmax's 0.05; every box head's
-    ``fc_cls``, a cascade's included). Any of the port's detectors."""
+    ``fc_cls``, a cascade's included). The single-stage heads' sigmoid
+    classifiers get the focal-loss prior bias -log(99) (their own init), an
+    L2Norm or a FCOS scale stays near its initial value and RepPoints'
+    moment transfer near 0. Any of the port's detectors."""
     gen = torch.Generator().manual_seed(seed)
     norms = {n for n, m in det.named_modules()
              if isinstance(m, (FrozenBatchNorm, nn.GroupNorm))}
-    last_bn = "bn3" if isinstance(det.backbone.layer1[0], Bottleneck) else "bn2"
+    layer1 = getattr(det.backbone, "layer1", None)  # SSD's VGG has none
+    last_bn = ("bn3" if layer1 is not None and isinstance(layer1[0],
+                                                          Bottleneck)
+               else "bn2")
     transposed = {n for n, m in det.named_modules()
                   if isinstance(m, nn.ConvTranspose2d)}
     # (pattern over the module name, gain); linear maps with no ReLU after
     # them keep the variance at gain 1.0
     gains = [(r"conv_offset$", 0.3), (_CLS, 4.0),
-             (r"fc_reg$|rpn_reg$", 0.4),
+             (r"(fc|rpn|retina|fcos)_reg$|reppoints_pts_\w+_out$"
+              r"|^bbox_head\.reg_convs\.\d+$", 0.4),
              (r"^neck\.|rpn_cls$|conv_pred\.conv$", 1.0)]
     with torch.no_grad():
         for name, p in det.state_dict().items():
             module, leaf = name.rsplit(".", 1)
             z = torch.randn(p.shape, generator=gen)
-            if leaf == "running_mean":
+            if leaf in ("scale", "moment_transfer") or module.endswith(
+                    "l2_norm"):  # near the initial value (1, 0, 20)
+                init = p.detach().cpu()
+                val = (init + 0.02 * z if leaf == "moment_transfer"
+                       else init * (1.0 + 0.1 * z))
+            elif leaf == "bias" and re.search(_SIGMOID_CLS, module):
+                val = -np.log((1 - 0.01) / 0.01) + 0.02 * z
+            elif leaf == "running_mean":
                 val = 0.1 * z
             elif leaf == "running_var":
                 val = 1.0 + 0.1 * z.abs()

@@ -2,9 +2,10 @@
 
 Compute dtypes follow the JAX package's rule exactly: a conv with a compute
 dtype casts its input, weight and bias to it; a conv without one computes in
-float32 (flax promotes any input against the f32 parameters). Resizes and
-pools use torch's own ``F.interpolate`` / pooling semantics, computed in f32
-and cast back to the input dtype.
+float32 (flax promotes any input against the f32 parameters), or in float64
+when its input and weight both are (a reference run in double precision).
+Resizes and pools use torch's own ``F.interpolate`` / pooling semantics,
+computed in f32 and cast back to the input dtype.
 """
 
 from __future__ import annotations
@@ -35,16 +36,20 @@ class Conv(nn.Conv2d):
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, bias=True, dtype: Optional[torch.dtype] = None,
-                 device=None, groups: int = 1):
+                 device=None, groups: int = 1, dilation: int = 1):
         super().__init__(in_channels, out_channels, kernel_size, stride,
-                         padding, bias=bias, device=device, groups=groups)
+                         padding, dilation, bias=bias, device=device,
+                         groups=groups)
         self.compute_dtype = dtype
 
     def forward(self, x):
-        dt = self.compute_dtype or torch.float32
+        # without a compute dtype: f32, or f64 when both are (a float64
+        # reference run)
+        dt = self.compute_dtype or torch.promote_types(x.dtype,
+                                                       self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding, 1, self.groups)
+                        self.padding, self.dilation, self.groups)
 
 
 class ConvTranspose(nn.ConvTranspose2d):
@@ -89,19 +94,27 @@ class FrozenBatchNorm(nn.Module):
 
 
 class ConvModule(nn.Module):
-    """conv (+ ReLU), mmdet ConvModule naming (``.conv``); the port's
-    callers use it without a norm layer."""
+    """conv (+ GroupNorm) (+ ReLU), mmdet ConvModule naming (``.conv``,
+    ``.gn``): with ``gn_groups`` the conv has no bias and GroupNorm
+    (eps 1e-5) follows it, as FCOS's towers."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
                  padding=0, relu: bool = True,
-                 dtype: Optional[torch.dtype] = None, device=None):
+                 dtype: Optional[torch.dtype] = None, device=None,
+                 gn_groups: Optional[int] = None):
         super().__init__()
         self.conv = Conv(in_channels, out_channels, kernel_size, stride,
-                         padding, dtype=dtype, device=device)
+                         padding, bias=gn_groups is None, dtype=dtype,
+                         device=device)
+        self.gn = (None if gn_groups is None else
+                   nn.GroupNorm(gn_groups, out_channels, eps=1e-5,
+                                device=device))
         self.relu = relu
 
     def forward(self, x):
         x = self.conv(x)
+        if self.gn is not None:
+            x = self.gn(x)
         return F.relu(x) if self.relu else x
 
 

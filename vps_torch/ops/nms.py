@@ -7,9 +7,10 @@ slots are masked to NEG_INF, and the greedy recursion "j is suppressed iff
 some unsuppressed i < j overlaps it above the threshold" is solved by
 iterating to the fixpoint over the upper-triangular adjacency matrix.
 
-JAX vmaps one NMS per class; here every class runs in one batched fixpoint
-(one (C-1, N, N) adjacency), so a call makes as many host syncs as the
-longest suppression chain of any class, not one loop per class. Soft-NMS is
+JAX vmaps one NMS per class; here the classes run in one batched fixpoint
+(one (C-1, N, N) adjacency; in groups when that exceeds ``PAIR_BUDGET``
+pairs), so a call makes as many host syncs as the longest suppression
+chain of any class (of each group), not one loop per class. Soft-NMS is
 one device loop over the N slots, batched over the classes, with no host
 sync inside.
 """
@@ -21,6 +22,9 @@ import torch
 from vps_torch.ops.box import bbox_overlaps
 
 NEG_INF = -1e10
+# multiclass_nms's most (class, box, box) pairs at once: 2^28, 1 GiB a f32
+# temporary
+PAIR_BUDGET = 1 << 28
 
 # host syncs made by the fixpoint loops (one ``bool()`` an iteration), for
 # the callers that count them (tests, chip_smoke.py)
@@ -144,16 +148,25 @@ def multiclass_nms(multi_bboxes, multi_scores, score_thr: float,
         scores_c = scores_c * score_factors[None, :]
     valid_c = scores_c > score_thr
 
-    if nms_type == "soft_nms":
-        scores_c, keep_c = soft_nms(
-            boxes_c, scores_c, iou_thr=iou_thr,
-            sigma=nms_cfg.get("sigma", 0.5),
-            min_score=nms_cfg.get("min_score", 1e-3),
-            method=nms_cfg.get("method", "linear"), valid=valid_c)
-    elif nms_type == "nms":
-        keep_c = _nms_keep(boxes_c, scores_c, iou_thr, valid_c)
-    else:
+    if nms_type not in ("nms", "soft_nms"):
         raise ValueError(f"unknown nms type {nms_type!r}")
+    # the classes in groups of at most PAIR_BUDGET (class, box, box) pairs:
+    # one group for the R-CNNs' 80 x 1000 boxes, several for a
+    # single-stage head's ~5000 candidates
+    step = max(1, PAIR_BUDGET // (n * n))
+    keeps, rescored = [], []
+    for c0 in range(0, nc, step):
+        b, s, v = (t[c0:c0 + step] for t in (boxes_c, scores_c, valid_c))
+        if nms_type == "soft_nms":
+            s, k = soft_nms(b, s, iou_thr=iou_thr,
+                            sigma=nms_cfg.get("sigma", 0.5),
+                            min_score=nms_cfg.get("min_score", 1e-3),
+                            method=nms_cfg.get("method", "linear"), valid=v)
+        else:
+            k = _nms_keep(b, s, iou_thr, v)
+        keeps.append(k)
+        rescored.append(s)
+    keep_c, scores_c = torch.cat(keeps), torch.cat(rescored)
 
     # flattened proposal-major, as JAX's (N, C-1) layout: ties in top_k
     # break by proposal, then class
