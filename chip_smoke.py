@@ -343,7 +343,8 @@ def phase_kernels_correlation():
     multiple of either kernel's block. Tolerance: f32 atol 1e-5 + rtol 1e-5
     (summation order); bf16 one output ulp (rtol 2^-7) + atol 1e-6: products
     of bf16 values are exact in f32, so both round an f32 sum, taken in
-    another order, to bf16, which can land one ulp apart."""
+    another order, to bf16, which can land one ulp apart. The plain version
+    is timed at the named shapes, not the ragged ones."""
     import torch
     from vps_torch.ops import correlation, correlation_reference
 
@@ -400,7 +401,8 @@ def phase_kernels_correlation():
         ok = bool((err <= limit).all())
         max_err[dt] = max(max_err[dt], float(err.max()))
         ms = cuda_ms(lambda: correlation(f1, f2, md, s2))
-        plain = cuda_ms(lambda: correlation_reference(f1, f2, md, s2), iters=20)
+        plain = (float("nan") if name.startswith("ragged") else
+                 cuda_ms(lambda: correlation_reference(f1, f2, md, s2), iters=20))
         bound, by = correlation_bound_ms(shape, md, s2, dt)
         print(f"kernel correlation {name} {tuple(shape)} md={md} s2={s2} {dt}: "
               f"max_abs_err={float(err.max()):.3e} (tol {atol:g} + {rtol:g}*|ref|) "
@@ -538,7 +540,8 @@ def phase_kernels_correlation_backward():
     to the largest gradient (sums of D^2 terms in another order; elementwise
     bounds fail where the terms cancel): f32 1e-5 * max|ref|; bf16 one ulp
     of the largest, 2^-7 * max|ref| (both sum in f32 and round once). The
-    JSON entry's times are the f32 training shape's (one launch a step)."""
+    JSON entry's times are the f32 training shape's (one launch a step);
+    the plain version is timed at the named shapes, not the ragged ones."""
     import torch
     from vps_torch.ops import correlation_backward, correlation_backward_reference
 
@@ -569,8 +572,8 @@ def phase_kernels_correlation_backward():
         ok = err <= rel * ref_max
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: correlation_backward(g, f1, f2, md, s2))
-        plain = cuda_ms(lambda: correlation_backward_reference(g, f1, f2, md, s2),
-                        iters=10)
+        plain = (float("nan") if name == "ragged" else cuda_ms(
+            lambda: correlation_backward_reference(g, f1, f2, md, s2), iters=10))
         bound, by = correlation_backward_bound_ms(shape, md, s2, dt)
         print(f"kernel correlation_backward {name} {tuple(shape)} md={md} s2={s2} "
               f"{dt}: max_abs_err={err:.3e} (tol {rel:g}*max|ref|, max|ref| "
@@ -1082,6 +1085,7 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
 DATASET_CONFIG = """
 _base_ = r"{base}"
 data = dict(
+    workers_per_gpu=0,
     train=dict(times=1, dataset=dict(
         ann_file=r"{train_ann}", img_prefix=r"{train_img}",
         ref_prefix=r"{train_img}", seg_prefix=r"{train_seg}",
@@ -1114,26 +1118,25 @@ def _run_script(cmd, cwd):
 
 
 def _loader_seconds(cfg_path):
-    """The config's train loader alone, the run's seed, with 0 workers and
-    with the config's workers: host seconds until each batch of an epoch."""
+    """The config's train loader alone with 0 workers, the run's seed: host
+    seconds until each batch of an epoch. (Its 2 workers took ~33 s more:
+    their spawn and the first batch's 512 MB of masks; ROADMAP queue 2,
+    "Card costs" item 1.)"""
     from vps_torch.config import Config
     from vps_torch.data import build_dataset, build_loader
 
     cfg = Config.fromfile(cfg_path)
-    out = {}
-    for workers in sorted({0, cfg.data.get("workers_per_gpu", 2)}):
-        loader = build_loader(build_dataset(cfg.data["train"]), 1, seed=0,
-                              num_workers=workers)
-        times = []
-        try:
+    loader = build_loader(build_dataset(cfg.data["train"]), 1, seed=0,
+                          num_workers=0)
+    times = []
+    try:
+        t0 = time.perf_counter()
+        for _ in loader.epoch(0):
+            times.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-            for _ in loader.epoch(0):
-                times.append(time.perf_counter() - t0)
-                t0 = time.perf_counter()
-        finally:
-            loader.close()
-        out[workers] = times
-    return out
+    finally:
+        loader.close()
+    return {0: times}
 
 
 def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
@@ -1329,7 +1332,7 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
 ROBUST_FRAMES = 2  # the first two frames of the first val video
 ROBUST_CORRUPTIONS = ("gaussian_noise", "motion_blur", "fog",
                       "jpeg_compression")
-ROBUST_SEVERITIES = (1, 5)
+ROBUST_SEVERITIES = (5,)  # one severity, for the script's time (PERF.md §4)
 # box mAP ranks the detections down to a low score: 0.001, the score_thr
 # of mmdetection's HTC test_cfg (zoo_configs); the panoptic fusion's 0.6,
 # and 0.05 too, kept none of a 4-step checkpoint's detections on clean frames
@@ -2456,6 +2459,7 @@ def phase_small_aug(device="cuda"):
 ZOO_HW = (800, 1333)  # mmdet v1's test scale (1333, 800)
 ZOO_PAD = (800, 1344)  # padded by size divisor 32
 ZOO_IMAGES = 5  # timed, after 1 warm-up
+ZOO_OTHERS_IMAGES = 2  # the "zoo others" phase's, for the script's time
 # the "zoo" phase's types, in order: Fast R-CNN takes the RPN's proposals
 ZOO_OTHERS = ("rpn", "fast_rcnn", "faster_rcnn", "double_head", "ms_rcnn",
               "grid_rcnn")
@@ -2763,10 +2767,11 @@ def _zoo_image(device, hw=ZOO_HW, pad=ZOO_PAD):
 def _zoo_profile(det, run, stages, label, unit="image"):
     """One more ``unit`` (an image, or a train step) under torch.profiler:
     per-range kernel and host ms, host syncs, the top kernels
-    (vps_torch.profile's summary). Returns the host syncs of the unit."""
+    (vps_torch.profile's summary), the time the profile took to read.
+    Returns the host syncs of the unit."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from vps_torch.profile import _device_kernels, _summary
+    from vps_torch.profile import _summary, read_profile
 
     acts = [ProfilerActivity.CPU]
     if det.device.type == "cuda":
@@ -2776,14 +2781,16 @@ def _zoo_profile(det, run, stages, label, unit="image"):
         run()
         _sync(det.device)
         wall = time.perf_counter() - t0
-    events = prof.events()
-    kernels = _device_kernels(events, stages)
-    syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+    t0 = time.perf_counter()
+    p = read_profile(prof, stages)
+    read_s = time.perf_counter() - t0
+    total = sum(p.kernels.values())
     print(f"{label}: one more {unit} under torch.profiler: wall {wall:.4f}s, "
-          f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
-          f"{sum(kernels.values()) / (wall * 1e6):.3f}, host syncs {syncs}")
-    _summary(events, kernels, stages, 1, unit, f"{label}: ", top=6)
-    return syncs
+          f"kernels {total / 1e3:.1f} ms, device busy "
+          f"{total / (wall * 1e6):.3f}, host syncs {p.syncs}")
+    _summary(p, stages, 1, unit, f"{label}: ", top=6)
+    print(f"{label}: the profile read in {read_s:.1f}s")
+    return p.syncs
 
 
 def _zoo_check(name, out, det, h, w):
@@ -2827,17 +2834,29 @@ def _zoo_check(name, out, det, h, w):
     return nvalid
 
 
+ZOO_STAGES = ("backbone_fpn", "rpn", "semantic_head", "bbox_dets", "mask",
+              "grid")
+
+
+def _zoo_config(name):
+    """(source, model, train_cfg, test_cfg) of ``name`` in zoo_configs or
+    backbone_configs."""
+    return {**zoo_configs(), **backbone_configs()}[name]
+
+
 def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
-             images=ZOO_IMAGES):
+             images=ZOO_IMAGES, stages=ZOO_STAGES, probe=None, label=None):
     """Build ``name``'s detector at full width with seeded random weights,
     drive ``images`` images after 1 warm-up on the seeded image (``hw``
     padded to ``pad``), check the outputs, paste the masks at ``hw``,
-    profile one more image. Returns (outputs, launch counts)."""
+    profile one more image by the named ranges ``stages``, then call
+    ``probe(det, run)`` if given. Returns (outputs, launch counts)."""
     import torch
     from vps_torch.models.detectors import build_detector, random_init_
     from vps_torch.ops.mask import paste_masks
 
-    source, model, _, test_cfg = zoo_configs()[name]
+    label = label or name
+    source, model, _, test_cfg = _zoo_config(name)
     cfg, notes = _zoo_port_cfg(model)
     notes += _zoo_test_notes(test_cfg)
     t0 = time.perf_counter()
@@ -2865,9 +2884,7 @@ def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     nvalid = _zoo_check(name, out, det, *pad)
-    stages = ("backbone_fpn", "rpn", "semantic_head", "bbox_dets", "mask",
-              "grid")
-    syncs = _zoo_profile(det, run, stages, name)
+    syncs = _zoo_profile(det, run, stages, label)
     extra = ""
     if "mask_logits" in out:
         thr = test_cfg["rcnn"]["mask_thr_binary"]
@@ -2889,16 +2906,18 @@ def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
             extra += (f", mask scores in [{float(ms.min()):.4f}, "
                       f"{float(ms.max()):.4f}]")
     what = "proposals" if "proposals" in out else "valid detections"
-    print(f"{name}: {type(det).__name__} from mmdetection v1.0 {source}, R-50 "
-          f"FPN, 81 classes, {hw[0]}x{hw[1]} padded to "
+    print(f"{label}: {type(det).__name__} from mmdetection v1.0 {source}, "
+          f"{_trunk(det)}, 81 classes, {hw[0]}x{hw[1]} padded to "
           f"{pad[0]}x{pad[1]}, init {init_s:.1f}s, "
           f"{ips:.3f} images/s over {images} images after 1 warm-up, peak "
           f"mem {peak / 2**30:.2f} GiB, {what} {nvalid}, host syncs an image "
           f"{syncs}, launches {launches}{extra}; TF32 off; card: {smi}")
-    print(f"{name}: source keys without a counterpart: " + "; ".join(notes))
+    print(f"{label}: source keys without a counterpart: " + "; ".join(notes))
     if on_card and launches != _want():
-        raise AssertionError(f"{name}: port kernel launches {launches}: the "
+        raise AssertionError(f"{label}: port kernel launches {launches}: the "
                              f"zoo's path runs none of them")
+    if probe is not None:
+        probe(det, run)
     return out, launches
 
 
@@ -2978,7 +2997,7 @@ def _tiny_zoo_cfgs():
 SMALL_ZOO_MASK_TOL = 2e-3
 
 
-def phase_small_zoo(device="cuda"):
+def phase_small_zoo(device="cuda", cfgs=None, label="small zoo"):
     """Each zoo type (and the HTC alias, without the semantic head or the
     flow) at tests/test_two_stage.py's tiny shapes on one seeded 64x64
     image: the card against the port's CPU path with the same weights,
@@ -2986,7 +3005,9 @@ def phase_small_zoo(device="cuda"):
     det_labels, boxes and scores within 2e-2, at least one detection), mask
     logits and mask scores within SMALL_ZOO_MASK_TOL (the mask head's few
     convs in f32 on cuDNN against the CPU's: ~1e-5 of logits of magnitude
-    ~1, so a tenth of a percent is a fault, not rounding)."""
+    ~1, so a tenth of a percent is a fault, not rounding). ``cfgs``: {key:
+    config} (the type is the config's ``type``, else the key), by default
+    _tiny_zoo_cfgs()."""
     import torch
     from vps_torch.models.detectors import build_detector, random_init_
 
@@ -2999,7 +3020,8 @@ def phase_small_zoo(device="cuda"):
     props = torch.tensor([[2.0, 2.0, 30.0, 32.0], [28.0, 6.0, 62.0, 42.0],
                           [8.0, 30.0, 44.0, 62.0], [0.0, 0.0, 16.0, 16.0]] * 4)
     pvalid = torch.ones(16, dtype=torch.bool)
-    for kind, cfg in _tiny_zoo_cfgs().items():
+    for key, cfg in (cfgs or _tiny_zoo_cfgs()).items():
+        kind = cfg.get("type", key)
         cfg = dict(cfg, type=kind)
         cpu = random_init_(build_detector(cfg, test_cfg=test_cfg,
                                           device="cpu"), seed=SEED + 1)
@@ -3020,11 +3042,11 @@ def phase_small_zoo(device="cuda"):
             ok = torch.equal(got["proposal_valid"], want["proposal_valid"])
             err = float((got["proposals"] - want["proposals"]).abs().max())
             n = int(want["proposal_valid"].sum())
-            print(f"small zoo: {kind} card vs cpu: proposals {n} "
+            print(f"{label}: {key} card vs cpu: proposals {n} "
                   f"{'equal' if ok else 'DIFFER'}, box max err {err:.2e} "
                   f"(tol 2e-2)")
             if not ok or n == 0 or err > 2e-2:
-                raise AssertionError(f"small zoo {kind} disagrees")
+                raise AssertionError(f"{label} {key} disagrees")
             continue
         same = (torch.equal(got["det_valid"], want["det_valid"])
                 and torch.equal(got["det_labels"], want["det_labels"]))
@@ -3032,14 +3054,14 @@ def phase_small_zoo(device="cuda"):
         n = int(want["det_valid"].sum())
         merr = {k: float((got[k] - want[k]).abs().max())
                 for k in ("mask_logits", "mask_scores") if k in want}
-        print(f"small zoo: {kind} card vs cpu: dets {n} "
+        print(f"{label}: {key} card vs cpu: dets {n} "
               f"{'equal' if same else 'DIFFER'}, box/score max err {err:.2e} "
               f"(tol 2e-2)" + "".join(
                   f", {k} max err {v:.2e} (tol {SMALL_ZOO_MASK_TOL:g})"
                   for k, v in merr.items()))
         if (not same or n == 0 or err > 2e-2
                 or any(v > SMALL_ZOO_MASK_TOL for v in merr.values())):
-            raise AssertionError(f"small zoo {kind} disagrees between card "
+            raise AssertionError(f"{label} {key} disagrees between card "
                                  f"and cpu")
 
 
@@ -3097,7 +3119,7 @@ def _zoo_train_det(name, device):
     counterpart."""
     from vps_torch.models.detectors import build_detector, random_init_
 
-    source, model, train_cfg, test_cfg = zoo_configs()[name]
+    source, model, train_cfg, test_cfg = _zoo_config(name)
     cfg, notes = _zoo_port_cfg(model)
     det = random_init_(build_detector(cfg, train_cfg=train_cfg,
                                       test_cfg=test_cfg, device=device),
@@ -3126,7 +3148,36 @@ def _zoo_train_args(det, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD):
 
 
 def _trunk(det):
-    return "VGG-16" if type(det.backbone).__name__ == "SSDVGG" else "R-50 FPN"
+    """The trunk's name: VGG-16, HRNetV2p-W<w> HRFPN, or R-<depth> /
+    X-<depth>-<groups>x<width>d FPN with its plugins."""
+    from vps_torch.models.resnet import BasicBlock, Bottleneck
+
+    b = det.backbone
+    kind = type(b).__name__
+    if kind == "SSDVGG":
+        return "VGG-16"
+    if kind == "HRNet":
+        return f"HRNetV2p-W{b.stage2[0].branches[0][0].conv1.out_channels} HRFPN"
+    blocks = [m for m in b.modules() if isinstance(m, (Bottleneck,
+                                                       BasicBlock))]
+    if not isinstance(blocks[0], Bottleneck):
+        return f"R-{2 * len(blocks) + 2} FPN"
+    depth = 3 * len(blocks) + 2
+    c2 = b.layer1[0].conv2
+    name = (f"R-{depth}" if getattr(c2, "groups", 1) == 1 else
+            f"X-{depth}-{c2.groups}x{c2.weight.shape[0] // c2.groups}d")
+    plugins = []
+    dcn = [m.conv2 for m in blocks if m.conv2_offset is not None]
+    if dcn:
+        plugins.append(f"{'modulated ' if dcn[0].modulated else ''}DCN "
+                       f"(deformable groups {dcn[0].groups}) x{len(dcn)}")
+    gcb = sum(m.context_block is not None for m in blocks)
+    if gcb:
+        plugins.append(f"ContextBlock x{gcb}")
+    att = sum(m.gen_attention_block is not None for m in blocks)
+    if att:
+        plugins.append(f"GeneralizedAttention x{att}")
+    return " ".join([name] + plugins + ["FPN"])
 
 
 def _zoo_optimizer(det):
@@ -3138,24 +3189,27 @@ def _zoo_optimizer(det):
                            weight_decay=1e-4, grad_clip=35.0)[0]
 
 
-def _zoo_train_step(det, args, opt, gen):
-    """One SGD step: ``loss``, the backward of the terms named loss, the
-    update. Returns the loss dict."""
+def _zoo_train_step(det, args, opt, gen, on_grads=None):
+    """One SGD step: ``loss``, the backward of the terms named loss,
+    ``on_grads(det)`` if given, the update. Returns the loss dict."""
     losses = det.loss(**args, generator=gen)
     sum(v for k, v in losses.items() if "loss" in k).backward()
+    if on_grads is not None:
+        on_grads(det)
     opt.step()
     return losses
 
 
 def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
                    steps=None, make=None, stages=ZOO_TRAIN_STAGES,
-                   label=None):
+                   label=None, on_grads=None):
     """Train ``name`` at full width on the seeded image and gt under
     train_policy: 1 warm-up and ``steps`` - 1 timed steps (host clock,
     each ending in a synchronize), then one profiled step by the named
-    ranges ``stages``. ``make(name, device)`` builds the detector
-    (_zoo_train_det: the R-CNN zoo's). Returns (launch counts of the steps,
-    the detector)."""
+    ranges ``stages`` (none when ``stages`` is None). ``make(name,
+    device)`` builds the detector (_zoo_train_det: the R-CNN zoo's);
+    ``on_grads(det)`` reads the first step's gradients before its update.
+    Returns (launch counts of the steps, the detector)."""
     import torch
     from vps_torch.utils.numerics import train_policy
 
@@ -3175,16 +3229,18 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
         if on_card:
             torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        for _ in range(steps):
+        for i in range(steps):
             t = time.perf_counter()
-            losses = _zoo_train_step(det, args, opt, gen)
+            losses = _zoo_train_step(det, args, opt, gen,
+                                     on_grads if i == 0 else None)
             _sync(device)
             times.append(time.perf_counter() - t)
             hist.append({k: float(v.detach()) for k, v in losses.items()})
         launches = _counts()
         peak = torch.cuda.max_memory_allocated() if on_card else 0
-        syncs = _zoo_profile(det, lambda: _zoo_train_step(det, args, opt, gen),
-                             stages, label, unit="step")
+        syncs = ("not profiled" if stages is None else _zoo_profile(
+            det, lambda: _zoo_train_step(det, args, opt, gen), stages, label,
+            unit="step"))
     trainable = {n for n, p in det.named_parameters() if p.requires_grad}
     moved = {n for n, p in det.named_parameters()
              if not torch.equal(p.detach(), before[n])}
@@ -3207,7 +3263,8 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     print(f"{label}: source keys without a counterpart: " + "; ".join(notes))
     if bad:
         raise AssertionError(f"{label}: non-finite {bad}")
-    if opt.total_notfinite or opt.count != steps + 1:
+    # the profiled step applies an update too
+    if opt.total_notfinite or opt.count != steps + (stages is not None):
         raise AssertionError(f"{label}: {opt.total_notfinite} steps skipped, "
                              f"{opt.count} applied")
     if moved - trainable or not moved & trainable:
@@ -3274,7 +3331,7 @@ def _tiny_zoo_train_cfg(kind):
 SMALL_ZOO_GRAD_TOL = 1e-3
 
 
-def phase_small_zoo_train(device="cuda"):
+def phase_small_zoo_train(device="cuda", cfgs=None, label="small zoo train"):
     """Each zoo type (and the HTC alias, without the semantic head or the
     flow, not interleaved) trained one step at tests/test_two_stage.py's
     tiny shapes on one seeded 64x64 image and gt: the card against the
@@ -3282,7 +3339,7 @@ def phase_small_zoo_train(device="cuda"):
     sampler call's (2, n) priorities and Grid's jitter from seeded numpy),
     both under train_policy. The sampled slots must be equal, every loss
     term within rel 1e-3, every parameter's gradient of the total within
-    SMALL_ZOO_GRAD_TOL."""
+    SMALL_ZOO_GRAD_TOL. ``cfgs`` as phase_small_zoo's."""
     import torch
     import vps_torch.core.sampler as tsampler
     import vps_torch.core.targets as ttargets
@@ -3314,7 +3371,8 @@ def phase_small_zoo_train(device="cuda"):
               proposal_valid=np.arange(16) < 14)
     uniform, sample = tsampler.uniform, ttargets.random_sample
     jitter = two_stage.jitter_offsets
-    for kind, cfg in _tiny_zoo_cfgs().items():
+    for key, cfg in (cfgs or _tiny_zoo_cfgs()).items():
+        kind = cfg.get("type", key)
         cfg = dict(cfg, type=kind)
         if kind == "HTC":
             cfg["interleaved"] = False
@@ -3376,15 +3434,330 @@ def phase_small_zoo_train(device="cuda"):
         gerr = max((float((gg[n] - g).abs().max())
                     / (float(g.abs().max()) + 1e-6 * gmax / SMALL_ZOO_GRAD_TOL))
                    for n, g in gw.items() if n in gg)
-        print(f"small zoo train: {kind} card vs cpu: {len(want)} terms, "
+        print(f"{label}: {key} card vs cpu: {len(want)} terms, "
               f"worst rel err {rel:.2e} (tol 1e-3), sampler calls {len(ws)} "
               f"{'equal' if same_sel else 'DIFFER'}, {len(gw)} gradients, "
               f"worst err {gerr:.2e} of the tensor's largest "
               f"(tol {SMALL_ZOO_GRAD_TOL:g})")
         if (set(got) != set(want) or not same_sel or rel > 1e-3
                 or set(gg) != set(gw) or gerr > SMALL_ZOO_GRAD_TOL):
-            raise AssertionError(f"small zoo train {kind} disagrees between "
+            raise AssertionError(f"{label} {key} disagrees between "
                                  f"card and cpu")
+
+
+# ---------------------------------------------------------------------------
+# The zoo's remaining backbones (DCN, GCNet, the empirical attention,
+# ResNeXt, HRNetV2p with HRFPN) at full width, their training, and the tiny
+# ones on the card against the CPU
+# ---------------------------------------------------------------------------
+
+BACKBONE_NAMES = ("dcn_mask_rcnn", "mdconv_g4_faster_rcnn", "gcb_mask_rcnn",
+                  "attention_faster_rcnn", "x101_mask_rcnn",
+                  "hrnet_faster_rcnn")
+BACKBONE_IMAGES = 3  # timed, after 1 warm-up
+BACKBONE_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+_BACKBONE_RANGES = ("backbone", "backbone_dcn", "backbone_attention",
+                  "backbone_gcb", "neck")
+BACKBONE_STAGES = ("backbone_fpn",) + _BACKBONE_RANGES + ("rpn", "bbox_dets",
+                                                        "mask")
+# the extra dict of configs/hrnet/faster_rcnn_hrnetv2p_w32_1x.py
+_HRNET_W32 = dict(
+    stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                num_blocks=(4,), num_channels=(64,)),
+    stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                num_blocks=(4, 4), num_channels=(32, 64)),
+    stage3=dict(num_modules=4, num_branches=3, block="BASIC",
+                num_blocks=(4, 4, 4), num_channels=(32, 64, 128)),
+    stage4=dict(num_modules=3, num_branches=4, block="BASIC",
+                num_blocks=(4, 4, 4, 4), num_channels=(32, 64, 128, 256)))
+
+
+def _r50(**plugins):
+    """The backbone of the mmdetection v1.0 R-50 configs, with ``plugins``."""
+    return dict(type="ResNet", depth=50, num_stages=4,
+                out_indices=(0, 1, 2, 3), frozen_stages=1, style="pytorch",
+                **plugins)
+
+
+def backbone_configs():
+    """{name: (source config, model dict, train_cfg, test_cfg)} of the
+    detectors on the remaining backbones, written from the mmdetection
+    v1.0 configs named (their trunk, heads, train_cfg and test_cfg are
+    mask_rcnn_r50_fpn_1x's or faster_rcnn_r50_fpn_1x's)."""
+    rcnn = dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
+                max_per_img=100)
+    train = dict(rpn=_RPN_TRAIN, rpn_proposal=_RPN_PROPOSAL,
+                 rcnn=_zoo_train_rcnn())
+    faster_test = dict(rpn=_RPN_TEST, rcnn=rcnn)
+    mask_test = dict(rpn=_RPN_TEST, rcnn=dict(rcnn, mask_thr_binary=0.5))
+    c3_c5 = (False, True, True, True)
+
+    def faster(backbone, **trunk):
+        return dict(type="FasterRCNN", **dict(_mmdet_trunk(), backbone=backbone,
+                                              **trunk),
+                    bbox_head=_mmdet_bbox_head())
+
+    def mask(backbone, **trunk):
+        return dict(faster(backbone, **trunk), type="MaskRCNN",
+                    mask_roi_extractor=_MASK_ROI, mask_head=_MASK_HEAD)
+
+    return {
+        "dcn_mask_rcnn": ("configs/dcn/mask_rcnn_dconv_c3-c5_r50_fpn_1x.py",
+                          mask(_r50(dcn=dict(modulated=False,
+                                             deformable_groups=1,
+                                             fallback_on_stride=False),
+                                    stage_with_dcn=c3_c5)),
+                          train, mask_test),
+        "mdconv_g4_faster_rcnn": (
+            "configs/dcn/faster_rcnn_mdconv_c3-c5_group4_r50_fpn_1x.py",
+            faster(_r50(dcn=dict(modulated=True, deformable_groups=4,
+                                 fallback_on_stride=False),
+                        stage_with_dcn=c3_c5)), train, faster_test),
+        "gcb_mask_rcnn": ("configs/gcnet/mask_rcnn_r16_gcb_c3-c5_r50_fpn_1x.py",
+                          mask(_r50(gcb=dict(ratio=1. / 16.),
+                                    stage_with_gcb=c3_c5)),
+                          train, mask_test),
+        "attention_faster_rcnn": (
+            "configs/empirical_attention/"
+            "faster_rcnn_r50_fpn_attention_1111_1x.py",
+            faster(_r50(gen_attention=dict(spatial_range=-1, num_heads=8,
+                                           attention_type="1111",
+                                           kv_stride=2),
+                        stage_with_gen_attention=[[], [], [0, 1, 2, 3, 4, 5],
+                                                  [0, 1, 2]])),
+            train, faster_test),
+        "x101_mask_rcnn": ("configs/mask_rcnn_x101_32x4d_fpn_1x.py",
+                           mask(dict(type="ResNeXt", depth=101, groups=32,
+                                     base_width=4, num_stages=4,
+                                     out_indices=(0, 1, 2, 3), frozen_stages=1,
+                                     style="pytorch"),
+                                pretrained="open-mmlab://resnext101_32x4d"),
+                           train, mask_test),
+        "hrnet_faster_rcnn": ("configs/hrnet/faster_rcnn_hrnetv2p_w32_1x.py",
+                              faster(dict(type="HRNet", extra=_HRNET_W32),
+                                     neck=dict(type="HRFPN",
+                                               in_channels=[32, 64, 128, 256],
+                                               out_channels=256),
+                                     pretrained="open-mmlab://msra/"
+                                                "hrnetv2_w32"),
+                              train, faster_test),
+    }
+
+
+def _plugin_probe(label):
+    """``_zoo_run``'s probe: one more image with hooks on the backbone's
+    DCNs and ContextBlocks; prints the offsets' mean |value| in pixels and
+    the share of the DCNs' samples outside their map (beside the share at
+    zero offsets: the padding's taps), each ContextBlock's mean |change|
+    against its input's mean |value|, and every attention block's gamma."""
+    def probe(det, run):
+        import torch
+        from vps_torch.models.plugins import ContextBlock, GeneralizedAttention
+        from vps_torch.models.resnet import DeformConv2
+
+        dcn, gcb = [], []
+
+        def on_dcn(m, inputs, out):
+            x, off = inputs
+            h, w = x.shape[-2:]
+            o = off[:, :m.groups * 18].float()
+            b, _, ho, wo = o.shape
+            o = o.reshape(b, m.groups, 9, 2, ho, wo)
+            k = torch.arange(9, device=o.device)
+            ky = ((k // 3) * m.dilation).float()[:, None, None]
+            kx = ((k % 3) * m.dilation).float()[:, None, None]
+            gy = (torch.arange(ho, device=o.device) * m.stride
+                  - m.dilation).float()[:, None]
+            gx = (torch.arange(wo, device=o.device) * m.stride
+                  - m.dilation).float()[None, :]
+            y0, x0 = gy + ky, gx + kx  # (9, Ho, Wo) at zero offsets
+            ys, xs = y0 + o[:, :, :, 0], x0 + o[:, :, :, 1]
+
+            def outside(yy, xx):
+                return ((yy < 0) | (yy > h - 1) | (xx < 0) | (xx > w - 1)
+                        ).float().mean()
+
+            dcn.append(torch.stack([o.abs().mean(), o.abs().max(),
+                                    outside(ys, xs), outside(y0, x0)]))
+
+        def on_gcb(m, inputs, out):
+            (x,) = inputs
+            gcb.append(torch.stack([(out - x).abs().mean(), x.abs().mean()]))
+
+        hooks = [m.register_forward_hook(on_dcn if isinstance(m, DeformConv2)
+                                         else on_gcb)
+                 for m in det.backbone.modules()
+                 if isinstance(m, (DeformConv2, ContextBlock))]
+        try:
+            run()
+        finally:
+            for hk in hooks:
+                hk.remove()
+        if dcn:
+            d = torch.stack(dcn).cpu().numpy()
+            print(f"{label}: {len(d)} DCNs: mean |offset| "
+                  f"{d[:, 0].mean():.4f} px (per DCN {d[:, 0].min():.4f}-"
+                  f"{d[:, 0].max():.4f}, largest {d[:, 1].max():.4f}), "
+                  f"samples outside the map {d[:, 2].mean():.4f} (at zero "
+                  f"offsets {d[:, 3].mean():.4f})")
+        if gcb:
+            g = torch.stack(gcb).cpu().numpy()
+            print(f"{label}: {len(g)} ContextBlocks: mean |change| "
+                  f"{g[:, 0].mean():.4f} against mean |input| "
+                  f"{g[:, 1].mean():.4f} (per block {g[:, 0].min():.4f}-"
+                  f"{g[:, 0].max():.4f})")
+        gammas = [float(m.gamma.detach()) for m in det.backbone.modules()
+                  if isinstance(m, GeneralizedAttention)]
+        if gammas:
+            print(f"{label}: {len(gammas)} attention blocks, gamma "
+                  + ", ".join(f"{v:.4f}" for v in gammas))
+    return probe
+
+
+def phase_backbones(smi, names=BACKBONE_NAMES, device="cuda", **kw):
+    """Each named detector of backbone_configs at full width (_zoo_run,
+    BACKBONE_IMAGES timed images), the backbone_fpn range split into the
+    backbone, its plugins and the neck, and the plugins' probe. Returns the
+    launch counts by path."""
+    kw.setdefault("images", BACKBONE_IMAGES)
+    paths = {}
+    for name in names:
+        label = f"backbones {name}"
+        _, paths[label] = _zoo_run(name, smi, device, stages=BACKBONE_STAGES,
+                                   probe=_plugin_probe(label), label=label,
+                                   **kw)
+    return paths
+
+
+def _plugin_grads(label):
+    """``_zoo_train_run``'s check of step 1's gradients: every trainable
+    DCN offset conv weight, attention gamma and ContextBlock weight has a
+    finite gradient that is not zero."""
+    def check(det):
+        import torch
+
+        names, bad = [], []
+        for n, p in det.named_parameters():
+            plugin = (".conv2_offset.weight" in n or n.endswith(".gamma")
+                      or (".context_block." in n and n.endswith(".weight")))
+            if not plugin or not p.requires_grad:
+                continue
+            names.append(n)
+            g = p.grad
+            if (g is None or not bool(torch.isfinite(g).all())
+                    or float(g.abs().max()) == 0.0):
+                bad.append(n)
+        print(f"{label}: step 1 gradients of {len(names)} plugin parameters "
+              f"(DCN offset convs, attention gammas, ContextBlock weights): "
+              f"{len(names) - len(bad)} finite and non-zero")
+        if bad:
+            raise AssertionError(f"{label}: no gradient for {bad[:5]}")
+    return check
+
+
+def phase_backbones_train(smi, names=BACKBONE_NAMES, device="cuda", **kw):
+    """Each named detector of backbone_configs trained at full width
+    (_zoo_train_run: BACKBONE_TRAIN_STEPS steps under train_policy, the
+    plugins' gradients checked on step 1, no profiled step: the DCN
+    configs' took 12 s). Returns the launch counts by path."""
+    paths = {}
+    for name in names:
+        label = f"backbones train {name}"
+        paths[label], det = _zoo_train_run(
+            name, smi, device, steps=BACKBONE_TRAIN_STEPS, stages=None,
+            label=label, on_grads=_plugin_grads(label), **kw)
+        del det
+    return paths
+
+
+def _tiny_backbone_cfgs():
+    """The tiny detectors of tests/test_torch_port_backbone_zoo*.py (HRNet
+    + HRFPN Faster R-CNN; Mask R-CNN on an R-50 with DCN, ContextBlocks
+    and the attention), and a Faster R-CNN on a ResNeXt-50 32x4d with
+    modulated DCN in 4 groups, each with tests/test_two_stage.py's
+    32-wide heads."""
+    tiny = _tiny_zoo_cfgs()
+    hr = dict(
+        stage1=dict(num_modules=1, num_branches=1, block="BOTTLENECK",
+                    num_blocks=(1,), num_channels=(16,)),
+        stage2=dict(num_modules=1, num_branches=2, block="BASIC",
+                    num_blocks=(1, 1), num_channels=(8, 16)),
+        stage3=dict(num_modules=1, num_branches=3, block="BASIC",
+                    num_blocks=(1, 1, 1), num_channels=(8, 16, 32)),
+        stage4=dict(num_modules=1, num_branches=4, block="BASIC",
+                    num_blocks=(1, 1, 1, 1), num_channels=(8, 16, 32, 64)))
+    fpn = dict(type="FPN", in_channels=(256, 512, 1024, 2048),
+               out_channels=32, num_outs=5)
+    c3_c5 = (False, True, True, True)
+    return {
+        "hrnet FasterRCNN": dict(
+            tiny["FasterRCNN"], type="FasterRCNN",
+            backbone=dict(type="HRNet", extra=hr),
+            neck=dict(type="HRFPN", in_channels=(8, 16, 32, 64),
+                      out_channels=32, num_outs=5)),
+        "plugins MaskRCNN": dict(
+            tiny["MaskRCNN"], type="MaskRCNN", neck=fpn,
+            backbone=_r50(dcn=dict(modulated=False, deformable_groups=1,
+                                   fallback_on_stride=False),
+                          stage_with_dcn=c3_c5, gcb=dict(ratio=1. / 16.),
+                          stage_with_gcb=c3_c5,
+                          gen_attention=dict(spatial_range=-1, num_heads=8,
+                                             attention_type="1111",
+                                             kv_stride=2),
+                          stage_with_gen_attention=((), (), (0, 1, 2, 3, 4, 5),
+                                                    (0, 1, 2)))),
+        "x50 mdconv FasterRCNN": dict(
+            tiny["FasterRCNN"], type="FasterRCNN", neck=fpn,
+            backbone=dict(type="ResNeXt", depth=50, groups=32, base_width=4,
+                          frozen_stages=1,
+                          dcn=dict(modulated=True, deformable_groups=4),
+                          stage_with_dcn=c3_c5)),
+    }
+
+
+def phase_small_backbone_ops(device="cuda"):
+    """roi_pool, deform_roi_pool and ConvWS (no detector of the port calls
+    them) on the card against the CPU at a stride-16 level of the zoo's
+    image (50x84, 256 channels) with 512 seeded RoIs: roi_pool's maxima
+    equal, deform_roi_pool's means within 1e-5 and ConvWS (256 -> 256,
+    3x3) within 1e-4 of the largest value (f32, TF32 off)."""
+    import torch
+    from vps_torch.models.layers import ConvWS
+    from vps_torch.ops.roi_pool import deform_roi_pool, roi_pool
+
+    rng = np.random.RandomState(SEED + 15)
+    feat = torch.from_numpy(rng.randn(50, 84, 256).astype(np.float32))
+    xy = rng.rand(512, 2) * np.asarray([1200.0, 700.0])
+    wh = 16.0 + rng.rand(512, 2) * 300.0
+    rois = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(np.float32))
+    off = torch.from_numpy((0.1 * rng.randn(512, 7, 7, 2)).astype(np.float32))
+    conv = ConvWS(256, 256, 3, 1, 1)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(
+            (rng.randn(256, 256, 3, 3) / 48.0 + 0.01).astype(np.float32)))
+        conv.bias.copy_(torch.from_numpy(0.02 * rng.randn(256).astype(
+            np.float32)))
+    card = ConvWS(256, 256, 3, 1, 1, device=device)
+    card.load_state_dict(conv.state_dict())
+    x = feat.permute(2, 0, 1)[None]
+    d = torch.device(device)
+    cases = (
+        ("roi_pool 7x7", lambda t: roi_pool(t(feat), t(rois), 1 / 16, 7), 0.0),
+        ("deform_roi_pool 7x7", lambda t: deform_roi_pool(
+            t(feat), t(rois), t(off), 1 / 16, 7), 1e-5),
+        ("ConvWS 256->256 3x3", lambda t: (card if t(x).is_cuda else conv)(
+            t(x)), 1e-4))
+    with torch.no_grad():
+        for name, fn, tol in cases:
+            want = fn(lambda a: a)
+            got = fn(lambda a: a.to(d)).cpu()
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            print(f"small backbone ops: {name} card vs cpu: max err "
+                  f"{err:.3e} of largest {scale:.3e} (tol {tol:g} of it)")
+            if tuple(got.shape) != tuple(want.shape) or err > tol * scale:
+                raise AssertionError(f"small backbone ops: {name} disagrees "
+                                     f"between card and cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -4056,7 +4429,8 @@ def main() -> int:
     paths.update(_timed("zoo", phase_zoo, smi,
                         ("mask_rcnn", "cascade_mask_rcnn", "htc")))
     paths.update({f"zoo {k}": v for k, v in _timed(
-        "zoo others", phase_zoo, smi, ZOO_OTHERS).items()})
+        "zoo others", phase_zoo, smi, ZOO_OTHERS,
+        images=ZOO_OTHERS_IMAGES).items()})
     _timed("small zoo", phase_small_zoo)
     paths.update(_timed("zoo train", phase_zoo_train, smi,
                         ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
@@ -4066,6 +4440,13 @@ def main() -> int:
     _timed("small single stage", phase_small_single_stage)
     paths.update(_timed("single stage train", phase_single_stage_train, smi))
     _timed("small single stage train", phase_small_single_stage_train)
+    paths.update(_timed("backbones", phase_backbones, smi))
+    _timed("small backbones", phase_small_zoo, cfgs=_tiny_backbone_cfgs(),
+           label="small backbones")
+    _timed("small backbone ops", phase_small_backbone_ops)
+    paths.update(_timed("backbones train", phase_backbones_train, smi))
+    _timed("small backbones train", phase_small_zoo_train,
+           cfgs=_tiny_backbone_cfgs(), label="small backbones train")
     paths.update(_timed(
         "dataset (robustness and detection eval included)", phase_dataset,
         smi, numerics, then=(lambda fx: phase_robustness(smi, fx),

@@ -206,3 +206,27 @@ def test_point_assign_stays_linear_in_points():
     largest = max(e.cpu_memory_usage for e in prof.events())
     assert 0 < largest <= 16 * n * g < n * n, largest
     assert set(res.assigned_gt_inds.unique().tolist()) == set(range(13))
+
+
+def test_l2norm_near_zero_features_match_jax():
+    """SSD's L2Norm where a location's features are near zero: the 1e-10
+    inside the square root dominates there (its norm ~1.0e-5 instead of
+    ~2e-6 with the 1e-10 outside it), so both stacks must put it in the
+    same place; ordinary locations too. Within 1e-6 relative."""
+    from vps_tpu.models.ssd_vgg import L2Norm as JL2Norm
+    from vps_torch.models.ssd_vgg import L2Norm
+
+    rng = np.random.RandomState(4)
+    x = rng.randn(1, 3, 5, 4).astype(np.float32)
+    x[0, 1] = 1e-6 * rng.randn(5, 4)  # a row of near-zero feature vectors
+    x[0, 2, 0] = 0.0  # and one of zeros
+    weight = (20.0 + rng.randn(4)).astype(np.float32)
+    jnorm = JL2Norm()
+    want = np.asarray(jax.jit(lambda v: jnorm.apply(v, jnp.asarray(x)))(
+        {"params": {"weight": jnp.asarray(weight)}}))
+    mod = L2Norm(4)
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(weight))
+        got = mod(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-30)
+    assert np.abs(want[0, 1]).max() < 5.0  # the epsilon held these small

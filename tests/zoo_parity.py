@@ -106,16 +106,16 @@ def htc_cfg(semantic=True, mask_info_flow=True):
 
 
 def pair(kind, cfg, seed=0, test_cfg=TEST_CFG, img=IMG, proposals=None,
-         port_kind=None):
+         port_kind=None, fill_fn=fill):
     """vps_tpu's ``kind`` and the port's (``port_kind``, default the same
-    name) on the same seeded weights and image. Returns (JAX outputs as
-    numpy, the port's as numpy, the port detector)."""
+    name) on the same seeded weights (``fill_fn``) and image. Returns (JAX
+    outputs as numpy, the port's as numpy, the port detector)."""
     jdet = JDETECTORS.get(kind)(test_cfg=test_cfg, **cfg)
     extra = () if proposals is None else tuple(jnp.asarray(p) for p in proposals)
     shapes = jax.eval_shape(lambda: jdet.init(
         jax.random.PRNGKey(0), img, *extra, method=jdet.predict))
     rng = np.random.default_rng(seed)
-    variables = {k: fill(v, rng) for k, v in shapes.items()}
+    variables = {k: fill_fn(v, rng) for k, v in shapes.items()}
     want = jax.jit(lambda v, *a: jdet.apply(v, img, *a, method=jdet.predict))(
         variables, *extra)
     port = build_detector(dict(cfg, type=port_kind or kind), test_cfg=test_cfg,
@@ -186,7 +186,7 @@ def gt_sample(masks=True, semantic=False):
 
 
 def train_pair(kind, cfg, train_cfg, sample, seed=0, jitter=None,
-               port_kind=None):
+               port_kind=None, fill_fn=fill):
     """vps_tpu's ``kind`` and the port's ``loss`` on the same seeded weights,
     the image IMG and ``sample`` (numpy gt, and proposals for FastRCNN),
     the same sampler draws (``Draws``: JAX's ``random_sample`` and the
@@ -197,7 +197,8 @@ def train_pair(kind, cfg, train_cfg, sample, seed=0, jitter=None,
     port's is ``loss`` and one backward. Returns a dict: ``jl`` / ``tl``
     the terms, ``jg`` / ``tg`` the gradients by the port's parameter names
     (the port's None where a parameter got none), ``jsel`` / ``tsel`` each
-    sampler call's (inds, valid), in order, and ``port``."""
+    sampler call's (inds, valid), in order, and ``port``. ``fill_fn`` makes
+    the weights (``fill``'s by default)."""
     import pytest
 
     import vps_tpu.core.targets as jtargets
@@ -214,7 +215,7 @@ def train_pair(kind, cfg, train_cfg, sample, seed=0, jitter=None,
         {"params": jax.random.PRNGKey(0), "sampler": jax.random.PRNGKey(1)},
         **jargs, method=jdet.loss))
     rng = np.random.default_rng(seed)
-    variables = {k: fill(v, rng) for k, v in shapes.items()}
+    variables = {k: fill_fn(v, rng) for k, v in shapes.items()}
     params, stats = variables["params"], variables.get("batch_stats")
 
     jdraws, tdraws = Draws(seed), Draws(seed)

@@ -17,7 +17,15 @@ The R-CNN zoo's flax submodules are named after their attributes
 maps ``<name>_m`` to mmdet's ``<name>`` and a cascade's ``<head>s_<i>`` to
 ``<head>.<i>`` before the rules below are read; the single-stage
 detectors' ``head_m`` becomes mmdet's ``bbox_head``, a deformable conv's
-(k, k, Cin, Cout) weight its (Cout, Cin, k, k).
+(k, k, Cin, Cout) weight its (Cout, Cin, k, k). The backbones: a DCN
+bottleneck's ``conv2_weight`` (a parameter of the block) becomes
+``conv2.weight``, its ``conv2_offset`` stays; ``context_block`` and
+``gen_attention_block`` keep mmdet's names (the LayerNorm's scale and bias
+reshaped to (C, 1, 1)); HRNet's ``t<s>_b<b>``, ``stage<n>_m<m>/branch<b>_
+block<j>`` and ``fuse<i>_<j>[_ds<s>]`` become ``transition<s+1>.<b>``
+(a new branch one Sequential deeper), ``stage<n>.<m>.branches.<b>.<j>``
+and ``fuse_layers.<i>.<j>[.<s>]``; HRFPN's ``reduction`` and
+``fpn_conv<i>`` become ``reduction_conv.conv`` and ``fpn_convs.<i>.conv``.
 """
 
 from __future__ import annotations
@@ -70,6 +78,11 @@ def grid_deconv2_w(k):
     return grouped_deconv_w(k, k.shape[3])
 
 
+def layer_norm_chw(v):
+    """flax LayerNorm's (C,) scale or bias -> mmdet's (C, 1, 1)."""
+    return v.reshape(-1, 1, 1)
+
+
 def linear_chw_w(k):
     rows, o = k.shape
     c = rows // (ROI_HW * ROI_HW)
@@ -81,6 +94,7 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
        "var": "running_var"}
 _GN = {"scale": "weight", "bias": "bias"}
 _FLOW_NETS = "flownetc|flownets_1|flownets_2|flownets_d|flownetfusion"
+_BLOCK = r"(backbone|shared_head)/layer(\d+)_(\d+)"
 
 
 # (pattern over the '/'-joined flax path minus its leaf, torch key template,
@@ -97,6 +111,53 @@ RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
      "{0}.layer{1}.{2}.downsample.0", _WB, conv_w),
     (r"(backbone|shared_head)/layer(\d+)_(\d+)/downsample_bn",
      "{0}.layer{1}.{2}.downsample.1", _BN, None),
+    # the bottleneck's plugins: the DCN conv2 (its weight a parameter of
+    # the block) and its offsets, GCNet's context block, the attention
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)", "{0}.layer{1}.{2}",
+     {"conv2_weight": "conv2.weight"}, conv_w),
+    (r"(backbone|shared_head)/layer(\d+)_(\d+)/conv2_offset/Conv_0",
+     "{0}.layer{1}.{2}.conv2_offset", _WB, conv_w),
+    (rf"{_BLOCK}/context_block/(conv_mask)/Conv_0",
+     "{0}.layer{1}.{2}.context_block.{3}", _WB, conv_w),
+    (rf"{_BLOCK}/context_block/(channel_add_conv|channel_mul_conv)_0/Conv_0",
+     "{0}.layer{1}.{2}.context_block.{3}.0", _WB, conv_w),
+    (rf"{_BLOCK}/context_block/(channel_add_conv|channel_mul_conv)_ln",
+     "{0}.layer{1}.{2}.context_block.{3}.1", _GN, layer_norm_chw),
+    (rf"{_BLOCK}/context_block/(channel_add_conv|channel_mul_conv)_1/Conv_0",
+     "{0}.layer{1}.{2}.context_block.{3}.3", _WB, conv_w),
+    (rf"{_BLOCK}/gen_attention_block/(query_conv|key_conv|value_conv"
+     r"|proj_conv)/Conv_0", "{0}.layer{1}.{2}.gen_attention_block.{3}", _WB,
+     conv_w),
+    (rf"{_BLOCK}/gen_attention_block/(appr_geom_fc_[xy])",
+     "{0}.layer{1}.{2}.gen_attention_block.{3}", _WB, linear_w),
+    (rf"{_BLOCK}/gen_attention_block", "{0}.layer{1}.{2}.gen_attention_block",
+     {k: k for k in ("appr_bias", "geom_bias", "gamma")}, None),
+    # HRNet: the stem's second conv, the transitions (a new branch's conv
+    # one level deeper), the modules' branches and fuse layers
+    (r"backbone/(conv2)/Conv_0", "backbone.{0}", _WB, conv_w),
+    (r"backbone/(bn2)", "backbone.{0}", _BN, None),
+    (r"backbone/t(\d+)_b(\d+)_conv/Conv_0", "backbone.transition{tr}.0",
+     _WB, conv_w),
+    (r"backbone/t(\d+)_b(\d+)_bn", "backbone.transition{tr}.1", _BN, None),
+    (r"backbone/(stage\d)_m(\d+)/branch(\d+)_block(\d+)/(conv\d)/Conv_0",
+     "backbone.{0}.{1}.branches.{2}.{3}.{4}", _WB, conv_w),
+    (r"backbone/(stage\d)_m(\d+)/branch(\d+)_block(\d+)/(bn\d)",
+     "backbone.{0}.{1}.branches.{2}.{3}.{4}", _BN, None),
+    (r"backbone/(stage\d)_m(\d+)/branch(\d+)_block(\d+)/downsample_conv"
+     r"/Conv_0", "backbone.{0}.{1}.branches.{2}.{3}.downsample.0", _WB, conv_w),
+    (r"backbone/(stage\d)_m(\d+)/branch(\d+)_block(\d+)/downsample_bn",
+     "backbone.{0}.{1}.branches.{2}.{3}.downsample.1", _BN, None),
+    (r"backbone/(stage\d)_m(\d+)/fuse(\d+)_(\d+)_conv/Conv_0",
+     "backbone.{0}.{1}.fuse_layers.{2}.{3}.0", _WB, conv_w),
+    (r"backbone/(stage\d)_m(\d+)/fuse(\d+)_(\d+)_bn",
+     "backbone.{0}.{1}.fuse_layers.{2}.{3}.1", _BN, None),
+    (r"backbone/(stage\d)_m(\d+)/fuse(\d+)_(\d+)_ds(\d+)_conv/Conv_0",
+     "backbone.{0}.{1}.fuse_layers.{2}.{3}.{4}.0", _WB, conv_w),
+    (r"backbone/(stage\d)_m(\d+)/fuse(\d+)_(\d+)_ds(\d+)_bn",
+     "backbone.{0}.{1}.fuse_layers.{2}.{3}.{4}.1", _BN, None),
+    # HRFPN
+    (r"neck/reduction/Conv_0", "neck.reduction_conv.conv", _WB, conv_w),
+    (r"neck/fpn_conv(\d+)/Conv_0", "neck.fpn_convs.{0}.conv", _WB, conv_w),
     (r"neck/lateral(\d+)/Conv_0", "neck.lateral_convs.{0}.conv", _WB, conv_w),
     (r"neck/fpn(\d+)/Conv_0", "neck.fpn_convs.{0}.conv", _WB, conv_w),
     (r"rpn_head/(rpn_\w+)/Conv_0", "rpn_head.{0}", _WB, conv_w),
@@ -231,20 +292,28 @@ def _rule_key(path: Tuple[str, ...]):
                 extra["dc"] = 3 * int(groups[0])
             if "{gn}" in tmpl:
                 extra["gn"] = 3 * int(groups[0]) + 1
+            if "{tr}" in tmpl:  # HRNet: t<stage>_b<branch>
+                si, br = int(groups[0]), int(groups[1])
+                # stage si + 2 adds branch si + 1: a stride-2 conv of the
+                # last branch, one Sequential deeper
+                extra["tr"] = f"{si + 1}.{br}" + (".0" if br > si else "")
             if "{vgg}" in tmpl:
                 extra["vgg"] = vgg_feature_index(int(groups[0]),
                                                  int(groups[1]))
             key = tmpl.format(*groups, **extra) + "." + leaf_map[leaf]
-            return key, (fn if leaf_map[leaf].endswith("weight") else None)
+            every_leaf = fn is layer_norm_chw
+            return key, (fn if every_leaf or leaf_map[leaf].endswith("weight")
+                         else None)
     raise KeyError(f"no torch name for flax variable {'/'.join(path)}")
 
 
 def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack,
     PanopticFuse or PanopticTrack (either fuse neck, either refine type), of
-    a two-stage or cascade R-CNN of the zoo, or of RetinaNet, FCOS, SSD or
-    RepPointsDetector, as numpy arrays -> the
-    port's mmdet-named state_dict (float32 tensors), accepted by the same
+    a two-stage or cascade R-CNN of the zoo (on any of the ResNet, ResNeXt
+    or HRNet backbones, with the ResNet's plugins), or of RetinaNet, FCOS,
+    SSD or RepPointsDetector, as numpy arrays -> the port's mmdet-named
+    state_dict (float32 tensors), accepted by the same
     detector's ``load_state_dict(strict=True)``: a tower the tree lacks has
     no keys."""
     sd: Dict[str, torch.Tensor] = {}

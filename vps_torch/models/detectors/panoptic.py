@@ -59,7 +59,8 @@ from vps_torch.models.layers import (
 )
 from vps_torch.models.mask_head import FCNMaskHead
 from vps_torch.models.panoptic_fpn import UPSNetFPN
-from vps_torch.models.resnet import Bottleneck, ResNet
+from vps_torch.models.plugins import LayerNorm
+from vps_torch.models.resnet import BasicBlock, Bottleneck, ResNet
 from vps_torch.models.rpn_head import RPNHead, rpn_proposals
 from vps_torch.models.track_head import (
     TrackHead,
@@ -925,31 +926,54 @@ _CLS = r"^bbox_head\.(\d+\.)?fc_cls$"
 _SIGMOID_CLS = r"^bbox_head\.(retina_cls|fcos_cls|reppoints_cls_out)$"
 
 
+# HRNet's fuse paths: fuse_layers.<i>.<j>.1 (upsample: conv, BN) and
+# fuse_layers.<i>.<j>.<s>.1 (downsample step s of i - j)
+_FUSE_LAST_BN = r"fuse_layers\.(\d+)\.(\d+)\.(?:(\d+)\.)?1$"
+
+
+def _fuse_last(name: str) -> bool:
+    """An HRNet fuse path's last BN: the upsample's, or the last of the
+    i - j downsample steps."""
+    i, j, step = re.search(_FUSE_LAST_BN, name).groups()
+    return step is None or int(step) == int(i) - int(j) - 1
+
+
 def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights that keep activations O(1) through the whole
     chain and give the detection heads a usable population: weights
     N(0, gain^2 / fan_in) (fan-in scaling as in the JAX parity tests, gain
     1.4, 1.0 for the linear FPN convs and classifiers), small biases, BN/GN affine near identity, the last BN of each
     residual branch x0.2 (so the residual sums do not double the variance
-    block after block), small DCN offsets, and a wide classifier so some
-    proposals clear the 0.6 panoptic score threshold (and, for the R-CNN
-    zoo's detectors, their 81-way softmax's 0.05; every box head's
-    ``fc_cls``, a cascade's included). The single-stage heads' sigmoid
+    block after block; each block's own, and each HRNet fuse path's
+    last), small DCN offsets (the backbone's ``conv2_offset`` too), the
+    attention's ``gamma`` 0.5 and the ContextBlock's last conv at gain 0.2
+    (both zero at init, which would make the blocks identities), and a
+    wide classifier so some proposals clear the 0.6 panoptic score
+    threshold (and, for the R-CNN zoo's detectors, their 81-way softmax's
+    0.05; every box head's ``fc_cls``, a cascade's included). The single-stage heads' sigmoid
     classifiers get the focal-loss prior bias -log(99) (their own init), an
     L2Norm or a FCOS scale stays near its initial value and RepPoints'
     moment transfer near 0. Any of the port's detectors."""
     gen = torch.Generator().manual_seed(seed)
     norms = {n for n, m in det.named_modules()
-             if isinstance(m, (FrozenBatchNorm, nn.GroupNorm))}
+             if isinstance(m, (FrozenBatchNorm, nn.GroupNorm, LayerNorm))}
     layer1 = getattr(det.backbone, "layer1", None)  # SSD's VGG has none
     last_bn = ("bn3" if layer1 is not None and isinstance(layer1[0],
                                                           Bottleneck)
                else "bn2")
+    # each residual block's own last BN (HRNet mixes both kinds), and the
+    # last BN of each HRNet fuse path, whose sums add up to 4 branches
+    residual = {f"backbone.{n}.{'bn3' if isinstance(m, Bottleneck) else 'bn2'}"
+                for n, m in det.backbone.named_modules()
+                if isinstance(m, (Bottleneck, BasicBlock))}
+    residual |= {n for n in norms if re.search(_FUSE_LAST_BN, n)
+                 and _fuse_last(n)}
     transposed = {n for n, m in det.named_modules()
                   if isinstance(m, nn.ConvTranspose2d)}
     # (pattern over the module name, gain); linear maps with no ReLU after
     # them keep the variance at gain 1.0
-    gains = [(r"conv_offset$", 0.3), (_CLS, 4.0),
+    gains = [(r"conv2?_offset$", 0.3), (_CLS, 4.0),
+             (r"context_block\.channel_(add|mul)_conv\.3$", 0.2),
              (r"(fc|rpn|retina|fcos)_reg$|reppoints_pts_\w+_out$"
               r"|^bbox_head\.reg_convs\.\d+$", 0.4),
              (r"^neck\.|rpn_cls$|conv_pred\.conv$", 1.0)]
@@ -970,8 +994,13 @@ def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
                 val = 1.0 + 0.1 * z.abs()
             elif module in norms:
                 val = 1.0 + 0.1 * z if leaf == "weight" else 0.1 * z
-                if leaf == "weight" and module.endswith("." + last_bn):
+                if leaf == "weight" and (module.endswith("." + last_bn)
+                                         or module in residual):
                     val = val * 0.2
+            elif leaf == "gamma":  # the attention's residual gate (0 at init)
+                val = 0.5 * (1.0 + 0.1 * z)
+            elif leaf in ("appr_bias", "geom_bias"):
+                val = 0.1 * z
             elif leaf == "bias":
                 val = z * (1.0 if re.search(_CLS, module) else 0.02)
             else:

@@ -10,9 +10,10 @@ descending, 0-based ``det_labels``, ``det_valid``, and with a mask head
 ``mask_logits`` (max_per_img, 28, 28) of each detection's class (paste them
 with ``vps_torch.ops.mask.paste_masks``); RPN returns ``proposals``,
 ``scores``, ``proposal_valid``. It runs under ``inference_mode``, with named
-``torch.profiler`` ranges for its stages: backbone_fpn, rpn, bbox_dets,
-mask (and grid for GridRCNN). Submodules carry mmdet's state_dict prefixes
-(``backbone``, ``neck``, ``shared_head``, ``rpn_head``, ``bbox_head``,
+``torch.profiler`` ranges for its stages: backbone_fpn (holding backbone
+and neck, and the backbone plugins' backbone_dcn, backbone_attention and
+backbone_gcb), rpn, bbox_dets, mask (and grid for GridRCNN). Submodules
+carry mmdet's state_dict prefixes (``backbone``, ``neck``, ``shared_head``, ``rpn_head``, ``bbox_head``,
 ``mask_head``, ``mask_iou_head``, ``grid_head``).
 
 ``loss`` takes one image with its gt padded to G boxes (``gt_valid``) and
@@ -36,6 +37,7 @@ from vps_torch import resolve_device
 from vps_torch.core import sampler
 from vps_torch.core.targets import anchor_target, proposal_target
 from vps_torch.models.bbox_head import get_det_bboxes
+from vps_torch.models.hrnet import HRNet  # noqa: F401  (registers it)
 from vps_torch.models.mask_head import select_mask_channel
 from vps_torch.models.mask_heads import (
     grid_bboxes,
@@ -140,9 +142,14 @@ class _Trunk(nn.Module):
                 len(self.anchor_scales) * len(self.anchor_ratios), device=dev)
 
     def extract_feat(self, img):
-        """img (1, H, W, 3) -> the pyramid, a tuple of (1, C, H_l, W_l)."""
-        x = self.backbone(img.permute(0, 3, 1, 2))
-        return self.neck(x) if self.neck is not None else x
+        """img (1, H, W, 3) -> the pyramid, a tuple of (1, C, H_l, W_l), in
+        the named ranges backbone and neck."""
+        with _stage("backbone"):
+            x = self.backbone(img.permute(0, 3, 1, 2))
+        if self.neck is None:
+            return x
+        with _stage("neck"):
+            return self.neck(x)
 
     def _anchors_for(self, cls_outs):
         return [AnchorGenerator(stride, self.anchor_scales, self.anchor_ratios)

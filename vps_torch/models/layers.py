@@ -52,6 +52,27 @@ class Conv(nn.Conv2d):
                         self.padding, self.dilation, self.groups)
 
 
+class ConvWS(nn.Conv2d):
+    """Weight-standardised conv (mmdet's ConvWS2d, the GN+WS configs): each
+    output channel's kernel is shifted to zero mean and divided by its
+    unbiased standard deviation plus ``eps`` before the convolution."""
+
+    def __init__(self, in_channels, out_channels, kernel_size=3, stride=1,
+                 padding=0, dilation: int = 1, bias=True, eps: float = 1e-5,
+                 device=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, dilation, bias=bias, device=device)
+        self.eps = eps
+
+    def forward(self, x):
+        flat = self.weight.reshape(self.weight.shape[0], -1)
+        mean = flat.mean(1)[:, None, None, None]
+        std = flat.std(1, unbiased=True)[:, None, None, None]
+        w = (self.weight - mean) / (std + self.eps)
+        return F.conv2d(x, w, self.bias, self.stride, self.padding,
+                        self.dilation)
+
+
 class ConvTranspose(nn.ConvTranspose2d):
     """ConvTranspose2d(k, stride, padding) with an explicit compute dtype."""
 

@@ -12,12 +12,14 @@ from vps_torch.ops.correlation import (
 )
 from vps_torch.ops.deform_conv import (
     deform_conv2d,
+    deform_conv2d_grouped,
     deform_conv2d_multilevel,
     deform_conv2d_windowed,
     deform_conv2d_windowed_reference,
 )
 from vps_torch.ops.nms import nms
 from vps_torch.ops.roi_align import multilevel_roi_align
+from vps_torch.ops.roi_pool import deform_roi_pool, roi_pool
 from vps_torch.ops.warp import channel_norm, flow_warp, resample2d
 
 __all__ = [
@@ -27,11 +29,14 @@ __all__ = [
     "correlation_backward_reference",
     "correlation_reference",
     "deform_conv2d",
+    "deform_conv2d_grouped",
     "deform_conv2d_multilevel",
     "deform_conv2d_windowed",
     "deform_conv2d_windowed_reference",
+    "deform_roi_pool",
     "flow_warp",
     "multilevel_roi_align",
     "nms",
     "resample2d",
+    "roi_pool",
 ]

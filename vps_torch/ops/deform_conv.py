@@ -95,6 +95,41 @@ def deform_conv2d(x, offset, weight, bias=None, stride: int = 1,
     return out
 
 
+def deform_conv2d_grouped(x, offset, weight, groups: int, bias=None,
+                          stride: int = 1, padding: int = 1,
+                          dilation: int = 1, mask=None,
+                          sampling: str = "bilinear"):
+    """Deformable-group conv (mmdet's DeformConv / ModulatedDeformConv with
+    ``deformable_groups = groups``): the input channels split into
+    ``groups`` groups, group g sampled at offset slice g (and mask slice g
+    when modulated), against the full weight; the sum of the groups'
+    ``deform_conv2d`` partials, in group order. ``groups = 1`` is
+    ``deform_conv2d`` itself.
+
+    x: (B, H, W, Cin); offset: (B, Ho, Wo, groups * 2K); weight: (Cout,
+    Cin, kh, kw); mask: (B, Ho, Wo, groups * K) or None."""
+    kw = dict(stride=stride, padding=padding, dilation=dilation,
+              sampling=sampling)
+    if groups == 1:
+        return deform_conv2d(x, offset, weight, bias=bias, mask=mask, **kw)
+    cin = x.shape[-1]
+    k = weight.shape[2] * weight.shape[3]
+    if cin % groups:
+        raise ValueError(f"deform_conv2d_grouped: {cin} input channels in "
+                         f"{groups} groups")
+    gc = cin // groups
+    out = None
+    for g in range(groups):
+        o = deform_conv2d(
+            x[..., g * gc:(g + 1) * gc], offset[..., g * 2 * k:(g + 1) * 2 * k],
+            weight[:, g * gc:(g + 1) * gc],
+            mask=None if mask is None else mask[..., g * k:(g + 1) * k], **kw)
+        out = o if out is None else out + o
+    if bias is not None:
+        out = out + bias
+    return out
+
+
 def deform_conv2d_windowed_reference(x, offset, weight, padding: int = 1,
                                      window: int = 4):
     """Plain version of the windowed kernel (JAX ``_windowed_ref``): clamp

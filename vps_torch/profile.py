@@ -30,7 +30,9 @@ the named ranges of ``PanopticFuseTrack.loss`` (TRAIN_STAGES), the backward
 from __future__ import annotations
 
 import argparse
+import bisect
 import time
+from typing import Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +55,8 @@ STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
 TRAIN_STAGES = ("backbone_fpn", "flownet2", "fuse_neck", "semantic_head", "rpn",
                 "proposal_targets", "bbox_head", "track", "mask_head",
                 "panoptic_loss", "backward", "optimizer")
+# the autograd engine's op of each backward node
+ENGINE = "autograd::engine::evaluate_function"
 # name parts of the kernels in vps_torch/csrc
 PORT_KERNELS = ("corr_bf16_tc", "corr_f32", "corr_backward", "dcw_fused",
                 "dcw_mix", "sum_parts")
@@ -69,44 +73,81 @@ def stages_of(det, stages=STAGES):
     return tuple(s for s in stages if s not in absent)
 
 
-def _kernel_us(evt) -> float:
-    """Summed duration of the kernels launched under a host event and its
-    descendants."""
-    return (sum(k.duration for k in evt.kernels)
-            + sum(_kernel_us(c) for c in evt.cpu_children))
+class Profile(NamedTuple):
+    """What ``read_profile`` takes out of a profile."""
+
+    kernels: Dict[str, float]  # device us by kernel name
+    launches: Dict[str, int]  # kernel events by name
+    ranges: Dict[str, Tuple[float, float]]  # kernel us, host us by range
+    syncs: int  # item/bool/int of a device tensor
 
 
-def _device_kernels(events, names):
-    """Summed device time (us) per kernel name, the named ranges left out
-    (their device-side copies would count twice)."""
-    kernels = {}
-    for e in events:
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in names:
-            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us()
-    return kernels
+def read_profile(prof, stages) -> Profile:
+    """The kineto events of ``prof`` read without building torch's event
+    tree (``prof.events()`` took a minute for the ~700k events of a step
+    through a DCN backbone): device time and count by kernel name, the
+    named ranges' device-side copies left out; for each range of
+    ``stages``, and for the autograd engine's ops together as ENGINE, the
+    summed kernel time (a kernel counts for a range when the op that
+    launched it started inside the range, on its thread: what torch's tree
+    of children holds) and host time; the host syncs."""
+    ops, spans, kernels, syncs = {}, [], [], 0
+    for e in prof.profiler.kineto_results.events():
+        name, dev = e.name(), e.device_type()
+        if dev == torch.autograd.DeviceType.CPU:
+            tid, t0 = e.start_thread_id(), e.start_ns()
+            ops[e.correlation_id()] = (tid, t0)
+            key = (name if name in stages else
+                   ENGINE if name.startswith(ENGINE) else None)
+            if key is not None:
+                spans.append((key, tid, t0, t0 + e.duration_ns()))
+            elif name == "aten::_local_scalar_dense":
+                syncs += 1
+        elif dev == torch.autograd.DeviceType.CUDA and name not in stages:
+            kernels.append((name, e.duration_ns(), e.linked_correlation_id()))
+    by_thread = {}  # launch times, sorted, and running sums of durations
+    for _, dur, corr in kernels:
+        if corr in ops:
+            tid, t0 = ops[corr]
+            by_thread.setdefault(tid, []).append((t0, dur))
+    for tid, launches in by_thread.items():
+        launches.sort()
+        acc = [0]
+        for _, dur in launches:
+            acc.append(acc[-1] + dur)
+        by_thread[tid] = ([t for t, _ in launches], acc)
+    ranges = {}
+    for key, tid, t0, t1 in spans:
+        k, h = ranges.get(key, (0.0, 0.0))
+        if tid in by_thread:
+            starts, acc = by_thread[tid]
+            k += (acc[bisect.bisect_right(starts, t1)]
+                  - acc[bisect.bisect_left(starts, t0)]) / 1e3
+        ranges[key] = (k, h + (t1 - t0) / 1e3)
+    device, launches = {}, {}
+    for name, dur, _ in kernels:
+        device[name] = device.get(name, 0.0) + dur / 1e3
+        launches[name] = launches.get(name, 0) + 1
+    return Profile(device, launches, ranges, syncs)
 
 
-def _summary(events, kernels, stages, n, unit, prefix="", top=20):
+def _summary(p: Profile, stages, n, unit, prefix="", top=20):
     """Per-stage kernel and host ms, the port's kernels, the host syncs and
-    the ``top`` kernels, each per ``unit`` (n of them in the profile)."""
+    the ``top`` kernels of ``p``, each per ``unit`` (n of them in the
+    profile)."""
     per = 1e3 * n  # us -> ms per unit
     for name in stages:
-        ranges = [e for e in events if e.name == name
-                  and e.device_type == torch.autograd.DeviceType.CPU]
-        if ranges:
-            print(f"{prefix}stage {name:16s} kernels "
-                  f"{sum(map(_kernel_us, ranges)) / per:8.2f} ms  host "
-                  f"{sum(e.cpu_time_total for e in ranges) / per:8.2f} ms per {unit}")
-    for name, us in sorted(kernels.items()):
+        if name in p.ranges:
+            k, h = p.ranges[name]
+            print(f"{prefix}stage {name:16s} kernels {k / per:8.2f} ms  host "
+                  f"{h / per:8.2f} ms per {unit}")
+    for name, us in sorted(p.kernels.items()):
         if any(part in name for part in PORT_KERNELS):
-            count = sum(1 for e in events if e.name == name
-                        and e.device_type == torch.autograd.DeviceType.CUDA)
-            print(f"{prefix}port kernel {us / per:8.4f} ms/{unit}  {count / n:g} "
-                  f"launches/{unit}  {name[:80]}")
-    syncs = sum(1 for e in events if e.name == "aten::_local_scalar_dense")
+            print(f"{prefix}port kernel {us / per:8.4f} ms/{unit}  "
+                  f"{p.launches[name] / n:g} launches/{unit}  {name[:80]}")
     print(f"{prefix}host syncs (item/bool/int of a device tensor): "
-          f"{syncs / n:g} per {unit}")
-    for name, us in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]:
+          f"{p.syncs / n:g} per {unit}")
+    for name, us in sorted(p.kernels.items(), key=lambda kv: -kv[1])[:top]:
         print(f"{prefix}kernel {us / per:8.2f} ms/{unit}  {name[:100]}")
 
 
@@ -144,17 +185,13 @@ def train_step(det, batch, optimizer, generator, prefix="train: ") -> None:
           f"{bwd:.4f}s, optimizer {opt:.4f}s")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         wall_s = float(sum(step()))
-    events = prof.events()
-    kernels = _device_kernels(events, TRAIN_STAGES)
-    backward_us = sum(_kernel_us(e) for e in events
-                      if e.name.startswith("autograd::engine::evaluate_function")
-                      and e.device_type == torch.autograd.DeviceType.CPU)
+    p = read_profile(prof, TRAIN_STAGES)
+    total = sum(p.kernels.values())
     print(f"{prefix}one more step under torch.profiler: wall {wall_s:.4f}s, "
-          f"kernels {sum(kernels.values()) / 1e3:.1f} ms, device busy "
-          f"{sum(kernels.values()) / (wall_s * 1e6):.3f}; backward kernels "
-          f"(autograd engine) {backward_us / 1e3:.1f} ms")
-    _summary(events, kernels, stages_of(det, TRAIN_STAGES), 1, "step", prefix,
-             top=8)
+          f"kernels {total / 1e3:.1f} ms, device busy "
+          f"{total / (wall_s * 1e6):.3f}; backward kernels (autograd engine) "
+          f"{p.ranges.get(ENGINE, (0.0, 0.0))[0] / 1e3:.1f} ms")
+    _summary(p, stages_of(det, TRAIN_STAGES), 1, "step", prefix, top=8)
 
 
 def main(argv=None) -> None:
@@ -201,15 +238,14 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         carry = run(2 + args.frames, n, carry)
         wall_s = time.perf_counter() - t0
-    events = prof.events()
-    kernels = _device_kernels(events, STAGES)
-    busy = sum(kernels.values()) / (wall_s * 1e6)
+    p = read_profile(prof, STAGES)
+    busy = sum(p.kernels.values()) / (wall_s * 1e6)
     print(f"frame ({args.detector}, dcn_window={args.dcn_window}): "
           f"{plain_s * 1e3:.1f} ms "
           f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
           f"device busy {busy:.3f} of the profiled window ({args.frames} "
           f"frames, {h}x{w}); {describe(numerics)}")
-    _summary(events, kernels, stages_of(det), args.frames, "frame")
+    _summary(p, stages_of(det), args.frames, "frame")
 
 
 if __name__ == "__main__":
