@@ -94,11 +94,12 @@ Phases, each printing its own line of numbers:
   6. viper    -- VIPER from files to VPQ: a synthetic fixture in VIPER's
                  format at 1080x1920 (tests/viper_fixture.py: 23 classes,
                  things 13..22; 1 train video of 2 frames, 2 val videos of
-                 15), vps_torch.tools.train on the port's
+                 10), vps_torch.tools.train on the port's
                  configs/viper/fusetrack.py (R-50, f32, 2 steps),
                  tools.test_vpq at half-flow streamed (--chunk 4 --streams
                  2) and frame by frame (--chunk 1), VIPER's evaluator at
-                 windows 1, 5, 10, 15 and tools.eval_ipq, in this process;
+                 windows 1, 5 and 10 (15 needs longer videos; cut for the
+                 script's time) and tools.eval_ipq, in this process;
                  fails on a non-finite loss, a skipped step, a frame
                  without an artifact, the two test_vpq runs not byte-equal,
                  PQ outside [0, 100], the GT not scoring 100 against itself
@@ -161,6 +162,32 @@ Phases, each printing its own line of numbers:
                  included, terms within rel 1e-3, gradients within
                  SMALL_ZOO_GRAD_TOL, SSD300's VGG convs in float64). No port
                  kernel runs on these paths: each fails on one launched.
+ 10. backbones -- six mmdetection v1.0 detectors on the remaining backbones
+                 (DCN, modulated DCN with 4 groups, GCNet, the empirical
+                 attention, ResNeXt-101, HRNetV2p-W32 with HRFPN) at full
+                 width, their training ("backbones train ...") and the tiny
+                 ones on the card against the CPU, as the zoo's phases.
+ 11. ga       -- GA-RetinaNet and GA-RPN (caffe R-50, 256-wide FPN, 81
+                 classes, 4 deformable groups; written from mmdetection
+                 v1.0's configs/guided_anchoring/, every key without a
+                 counterpart printed) at full width on the zoo's seeded
+                 image, under inference_policy: the masked forward and
+                 ga_bboxes / ga_rpn_proposals, 1 warm-up and 2 timed images
+                 ("ga <name>"), images/s, peak memory, host syncs, the share
+                 of locations the loc filter keeps per level, one image
+                 profiled by backbone_fpn, ga_head, feature_adaption,
+                 ga_dets / ga_proposals; their training (ga_loss /
+                 ga_rpn_loss, 1 warm-up + 2 steps, train_policy, "ga train
+                 <name>": fails on a non-finite term, a head parameter
+                 without a gradient or a changed frozen one); the tiny heads
+                 of the CPU tests on the card against the CPU ("small ga":
+                 equal detections and proposals, boxes and scores within
+                 1e-4; "small ga train": equal assignments and sampled
+                 sets, terms within rel 1e-3, gradients within
+                 SMALL_ZOO_GRAD_TOL; the MSE, balanced L1, bounded and
+                 generalised IoU and GHM losses and masked_conv2d at
+                 GA-RetinaNet's training sizes). No port
+                 kernel runs on these paths: each fails on one launched.
 Each path is driven with every launch count set to 0 just before it and read
 just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
@@ -216,7 +243,9 @@ TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
 # window); the test scale (2048, 1024) takes the frame to 1820x1024, padded
 # to 1824x1024; LiteFlowNetCorr's input is its 1/4 level
 VIPER_H, VIPER_W = 1080, 1920
-VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 2, 2, 15
+# 10 val frames a video, for the script's time: VIPER's windows 1, 5, 10
+# (15 would need 15)
+VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 2, 2, 10
 VIPER_CHUNK, VIPER_STREAMS = 4, 2
 VIPER_TEST = (1024, 1824)
 VIPER_CORR = (1, VIPER_TEST[0] // 4, VIPER_TEST[1] // 4, 256)
@@ -4309,7 +4338,7 @@ def _repeat_steps(label, det, step, make_opt, seed=SEED):
 
 
 def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
-                           zoo_hw=ZOO_HW, zoo_pad=ZOO_PAD, cost_steps=2):
+                           zoo_hw=ZOO_HW, zoo_pad=ZOO_PAD, cost_steps=1):
     """The FuseTrack train step (the "train" path's model, sample and
     fusetrack_train_cfg) and Mask R-CNN's (the "zoo train" path's), each run
     twice from the same state under train_policy and compared bit for bit
@@ -4377,6 +4406,653 @@ def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
     _repeat_steps(f"mask_rcnn R-50 FPN {zoo_pad[0]}x{zoo_pad[1]}", zdet,
                   lambda o, g: _zoo_train_step(zdet, args, o, g),
                   lambda: _zoo_optimizer(zdet))
+
+
+# ---------------------------------------------------------------------------
+# Guided anchoring: GA-RetinaNet and GA-RPN at full width, their training,
+# and the tiny heads of the CPU tests on the card against the CPU
+# ---------------------------------------------------------------------------
+
+GA_NAMES = ("ga_retinanet", "ga_rpn")
+GA_IMAGES = 2  # timed, after 1 warm-up
+GA_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+GA_STAGES = ("backbone_fpn", "ga_head", "feature_adaption", "ga_dets",
+             "ga_proposals")
+_CAFFE_R50 = dict(type="ResNet", depth=50, num_stages=4,
+                  out_indices=(0, 1, 2, 3), frozen_stages=1,
+                  norm_cfg=dict(type="BN", requires_grad=False),
+                  norm_eval=True, style="caffe")
+_GA_LOC = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
+               loss_weight=1.0)
+_GA_SHAPE = dict(type="BoundedIoULoss", beta=0.2, loss_weight=1.0)
+_GA_SAMPLER = dict(type="RandomSampler", num=256, pos_fraction=0.5,
+                   neg_pos_ub=-1, add_gt_as_proposals=False)
+
+
+def ga_configs():
+    """{name: (source config, model dict, train_cfg, test_cfg)}, written
+    from mmdetection v1.0's configs/guided_anchoring/ as zoo_configs."""
+    def ga_assigner(pos, neg, min_pos):
+        return dict(type="ApproxMaxIoUAssigner", pos_iou_thr=pos,
+                    neg_iou_thr=neg, min_pos_iou=min_pos, ignore_iof_thr=-1)
+
+    def head(**kw):
+        return dict(kw, in_channels=256, feat_channels=256,
+                    scales_per_octave=3, octave_ratios=[0.5, 1.0, 2.0],
+                    anchor_base_sizes=None, anchoring_means=[.0, .0, .0, .0],
+                    target_means=(.0, .0, .0, .0), loc_filter_thr=0.01,
+                    loss_loc=_GA_LOC, loss_shape=_GA_SHAPE)
+
+    return {
+        "ga_retinanet": ("configs/guided_anchoring/ga_retinanet_r50_caffe_fpn_"
+                         "1x.py", dict(
+            type="RetinaNet", pretrained="open-mmlab://resnet50_caffe",
+            backbone=_CAFFE_R50,
+            neck=dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                      out_channels=256, start_level=1, add_extra_convs=True,
+                      num_outs=5),
+            bbox_head=head(
+                type="GARetinaHead", num_classes=81, stacked_convs=4,
+                octave_base_scale=4, anchor_strides=[8, 16, 32, 64, 128],
+                anchoring_stds=[1.0, 1.0, 1.0, 1.0],
+                target_stds=[1.0, 1.0, 1.0, 1.0], loss_cls=_FOCAL,
+                loss_bbox=dict(type="SmoothL1Loss", beta=0.04,
+                               loss_weight=1.0))),
+            dict(ga_assigner=ga_assigner(0.5, 0.4, 0.4),
+                 ga_sampler=_GA_SAMPLER,
+                 assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                               neg_iou_thr=0.5, min_pos_iou=0.0,
+                               ignore_iof_thr=-1),
+                 allowed_border=-1, pos_weight=-1, center_ratio=0.2,
+                 ignore_ratio=0.5, debug=False),
+            dict(nms_pre=1000, min_bbox_size=0, score_thr=0.05,
+                 nms=dict(type="nms", iou_thr=0.5), max_per_img=100)),
+        "ga_rpn": ("configs/guided_anchoring/ga_rpn_r50_caffe_fpn_1x.py", dict(
+            type="RPN", pretrained="open-mmlab://resnet50_caffe",
+            backbone=_CAFFE_R50,
+            neck=dict(type="FPN", in_channels=[256, 512, 1024, 2048],
+                      out_channels=256, num_outs=5),
+            rpn_head=head(
+                type="GARPNHead", octave_base_scale=8,
+                anchor_strides=[4, 8, 16, 32, 64],
+                anchoring_stds=[0.07, 0.07, 0.14, 0.14],
+                target_stds=[0.07, 0.07, 0.11, 0.11],
+                loss_cls=dict(type="CrossEntropyLoss", use_sigmoid=True,
+                              loss_weight=1.0),
+                loss_bbox=dict(type="SmoothL1Loss", beta=1.0,
+                               loss_weight=1.0))),
+            dict(rpn=dict(ga_assigner=ga_assigner(0.7, 0.3, 0.3),
+                          ga_sampler=_GA_SAMPLER,
+                          assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.7,
+                                        neg_iou_thr=0.3, min_pos_iou=0.3,
+                                        ignore_iof_thr=-1),
+                          sampler=dict(_GA_SAMPLER), allowed_border=-1,
+                          pos_weight=-1, center_ratio=0.2, ignore_ratio=0.5,
+                          debug=False)),
+            dict(rpn=dict(nms_across_levels=False, nms_pre=2000,
+                          nms_post=2000, max_num=300, nms_thr=0.7,
+                          min_bbox_size=0))),
+    }
+
+
+# the losses vps_tpu's ga_loss / ga_rpn_loss compute, by head key
+_GA_LOSSES = {
+    "loss_loc": _GA_LOC, "loss_shape": _GA_SHAPE,
+    ("bbox_head", "loss_cls"): _FOCAL,
+    ("bbox_head", "loss_bbox"): dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                                     loss_weight=1.0),
+    ("rpn_head", "loss_cls"): dict(type="CrossEntropyLoss", use_sigmoid=True,
+                                   loss_weight=1.0),
+    ("rpn_head", "loss_bbox"): dict(type="SmoothL1Loss", beta=1.0 / 9.0,
+                                    loss_weight=1.0),
+}
+# config keys the GA functions (as vps_tpu's) have no argument for, and
+# what the port does instead
+_GA_DROPPED = {
+    ("backbone", "norm_eval"): "FrozenBatchNorm, whose statistics never "
+                               "update, as asked",
+    ("head", "anchor_base_sizes"): "None: the base sizes are the strides, "
+                                   "as vps_tpu's generators take them",
+    ("head", "type"): "the head's class (HEADS), on the port's backbone and "
+                      "FPN; no detector of vps_tpu (or the port) builds the "
+                      "GA heads, so this script composes them",
+}
+_GA_TRAIN_NOTES = {
+    "ga_retinanet": ["train_cfg.allowed_border=-1: not read, ga_loss "
+                     "assigns every guided anchor (what -1 asks)",
+                     "train_cfg.ga_sampler.type=RandomSampler: "
+                     "ga_shape_targets' random_sample, as asked"],
+    "ga_rpn": ["train_cfg.rpn.allowed_border=-1: vps_tpu's anchor_target "
+               "reads it as a border of -1 px (a guided anchor within 1 px "
+               "of the edge is not assigned), where mmdet reads a negative "
+               "border as no filter",
+               "train_cfg.rpn.ga_sampler.type=RandomSampler: "
+               "ga_shape_targets' random_sample, as asked"],
+}
+
+
+def _ga_port_cfg(model, train_cfg, test_cfg):
+    """The port's backbone, neck and head configs of a GA model dict
+    (ResNet's C3-C5 into the FPN where the config starts at level 1), the
+    keys without a counterpart dropped, each listed with what the port does
+    instead."""
+    notes = ["pretrained: not loaded, seeded random weights (random_init_)"]
+    key = "rpn_head" if "rpn_head" in model else "bbox_head"
+    backbone, neck, head = (dict(model[k]) for k in ("backbone", "neck",
+                                                     key))
+    notes.append(f"type={model['type']}: {_GA_DROPPED['head', 'type']}")
+    head.pop("type")
+    for k in ("norm_cfg", "norm_eval"):
+        backbone.pop(k)
+        notes.append(f"backbone.{k}: " + (_NO_COUNTERPART[k] if k in
+                                          _NO_COUNTERPART else
+                                          _GA_DROPPED["backbone", k]))
+    if neck.pop("start_level", 0) == 1:
+        backbone["out_indices"] = (1, 2, 3)
+        neck["in_channels"] = [512, 1024, 2048]
+        notes.append("neck.start_level=1: " + _NECK_DROPPED["neck",
+                                                            "start_level"])
+    if "add_extra_convs" in neck:
+        neck.pop("add_extra_convs")
+        notes.append("neck.add_extra_convs: " + _NECK_DROPPED[
+            "neck", "add_extra_convs"])
+    head.pop("anchor_base_sizes")
+    notes.append(f"{key}.anchor_base_sizes: "
+                 + _GA_DROPPED["head", "anchor_base_sizes"])
+    for k in sorted(k for k in head if k.startswith("loss_")):
+        spec = head.pop(k)
+        fixed = _GA_LOSSES.get(k) or _GA_LOSSES[key, k]
+        differ = {a: (spec.get(a), fixed.get(a)) for a in set(spec) | set(fixed)
+                  if spec.get(a) != fixed.get(a)}
+        notes.append(f"{key}.{k}: " + (
+            f"dropped: vps_tpu's loss is the one asked ({spec['type']})"
+            if not differ else "dropped: the port trains vps_tpu's loss, "
+            "which has " + ", ".join(f"{a}={v[1]:.4g} where this config "
+                                     f"asks {v[0]}"
+                                     for a, v in sorted(differ.items()))))
+    notes += _zoo_train_notes(train_cfg)
+    if "rpn" in test_cfg:
+        notes += ["rpn.nms_across_levels=False: per-level NMS, as read",
+                  f"rpn.nms_post={test_cfg['rpn']['nms_post']}: not read "
+                  f"(each level keeps <= nms_pre after its NMS)"]
+    else:
+        notes.append("min_bbox_size=0: ga_bboxes has no such argument; 0 "
+                     "filters nothing")
+    return dict(backbone=backbone, neck=neck, head=head), key, notes
+
+
+def _ga_model(name, device):
+    """``name``'s model of ga_configs: the port's backbone and FPN (through
+    their registries) under its GA head (HEADS), seeded random weights
+    (random_init_, which gives the loc convs the prior bias). ``predict``
+    runs the masked forward and ga_bboxes / ga_rpn_proposals; ``loss``
+    ga_loss / ga_rpn_loss; in the named ranges backbone_fpn, ga_head
+    (feature_adaption inside), ga_dets / ga_proposals, ga_loss. Returns
+    (model, source, notes)."""
+    import torch
+    from vps_torch.models import ga_heads
+    from vps_torch.models.detectors import random_init_
+    from vps_torch.registry import BACKBONES, HEADS, NECKS, build_from_cfg
+
+    stage = torch.profiler.record_function
+    source, model, train_cfg, test_cfg = ga_configs()[name]
+    cfg, key, notes = _ga_port_cfg(model, train_cfg, test_cfg)
+    rpn = key == "rpn_head"
+    dev = torch.device(device)
+    head_type = model[key]["type"]
+
+    class GAModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.device = dev
+            self.test_cfg = test_cfg
+            self.backbone = build_from_cfg(cfg["backbone"], BACKBONES,
+                                           dict(device=dev))
+            self.neck = build_from_cfg(cfg["neck"], NECKS, dict(device=dev))
+            setattr(self, key, build_from_cfg(dict(cfg["head"],
+                                                   type=head_type), HEADS,
+                                              dict(device=dev)))
+            self.eval()  # frozen BN
+
+        def forward(self, img, masked):
+            head = getattr(self, key)
+            with stage("backbone_fpn"):
+                x = self.neck(self.backbone(img.permute(0, 3, 1, 2)))
+            with stage("ga_head"):
+                return head(x, masked=masked)
+
+        @torch.inference_mode()
+        def predict(self, img):
+            head = getattr(self, key)
+            outs = self(img, masked=True)
+            thr = head.loc_filter_thr
+            kept = torch.stack([(torch.sigmoid(lp) >= thr).float().mean()
+                                for lp in outs[3]])
+            hw = tuple(img.shape[1:3])
+            if rpn:
+                t = test_cfg["rpn"]
+                with stage("ga_proposals"):
+                    p, s, v = ga_heads.ga_rpn_proposals(
+                        head, *outs, hw, nms_pre=t["nms_pre"],
+                        nms_thr=t["nms_thr"], max_num=t["max_num"],
+                        min_bbox_size=t["min_bbox_size"])
+                return {"proposals": p, "scores": s, "proposal_valid": v,
+                        "loc_kept": kept}
+            t = test_cfg
+            with stage("ga_dets"):
+                d, lab, v = ga_heads.ga_bboxes(
+                    head, *outs, hw, nms_pre=t["nms_pre"],
+                    score_thr=t["score_thr"], nms_thr=t["nms"]["iou_thr"],
+                    max_per_img=t["max_per_img"])
+            return {"det_bboxes": d, "det_labels": lab, "det_valid": v,
+                    "loc_kept": kept}
+
+        def loss(self, img, gt_bboxes, gt_valid, gt_labels=None,
+                 generator=None):
+            head = getattr(self, key)
+            outs = self(img, masked=False)
+            hw = tuple(img.shape[1:3])
+            with stage("ga_loss"):
+                if rpn:
+                    return ga_heads.ga_rpn_loss(generator, head, *outs,
+                                                gt_bboxes, gt_valid, hw,
+                                                train_cfg["rpn"])
+                return ga_heads.ga_loss(generator, head, *outs, gt_bboxes,
+                                        gt_labels, gt_valid, hw, train_cfg)
+
+    return random_init_(GAModel(), seed=SEED), source, notes
+
+
+def _ga_head_line(m):
+    """The head's full-width settings, for the phase lines."""
+    head = m.rpn_head if hasattr(m, "rpn_head") else m.bbox_head
+    fa = [x for x in head.modules()
+          if type(x).__name__ == "FeatureAdaption"]
+    return (f"{type(head).__name__} (num_classes {head.num_classes}), "
+            f"strides {list(head.anchor_strides)}, "
+            f"{len(fa)} feature adaption(s) a level of "
+            f"{fa[0].conv_adaption.weight.shape[0]} channels, deformable "
+            f"groups {head.deformable_groups}, loc_filter_thr "
+            f"{head.loc_filter_thr}")
+
+
+def phase_ga(smi, names=GA_NAMES, device="cuda", images=GA_IMAGES,
+             hw=ZOO_HW, pad=ZOO_PAD):
+    """GA-RetinaNet and GA-RPN at full width (caffe R-50, 256-wide FPN, 81
+    classes, 4 deformable groups) with seeded weights on the zoo's seeded
+    image (800x1333 padded to 800x1344), under inference_policy: 1 warm-up
+    and ``images`` timed images of the masked forward and decode, the
+    zoo's checks, the share of locations the loc filter keeps per level,
+    one more image profiled by the named ranges. Fails on a port kernel
+    launched. Returns the launch counts by path."""
+    import torch
+    from vps_torch.utils.numerics import inference_policy
+
+    paths = {}
+    on_card = torch.device(device).type == "cuda"
+    for name in names:
+        label = f"ga {name}"
+        with inference_policy():
+            t0 = time.perf_counter()
+            m, source, notes = _ga_model(name, device)
+            _sync(device)
+            init_s = time.perf_counter() - t0
+            img = _zoo_image(device, hw, pad)
+            m.predict(img)  # warm-up
+            _sync(device)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            t0 = time.perf_counter()
+            for _ in range(images):
+                out = m.predict(img)
+            _sync(device)
+            ips = images / (time.perf_counter() - t0)
+            launches = _counts()
+            peak = torch.cuda.max_memory_allocated() if on_card else 0
+            nvalid = _zoo_check(label, out, m, *pad)
+            kept = out["loc_kept"].tolist()
+            syncs = _zoo_profile(m, lambda: m.predict(img), GA_STAGES, label)
+        what = "proposals" if "proposals" in out else "valid detections"
+        print(f"{label}: from mmdetection v1.0 {source}, {_trunk(m)}, "
+              f"{_ga_head_line(m)}, {hw[0]}x{hw[1]} padded to "
+              f"{pad[0]}x{pad[1]}, init {init_s:.1f}s, {ips:.3f} images/s "
+              f"over {images} images after 1 warm-up, peak mem "
+              f"{peak / 2**30:.2f} GiB, {what} {nvalid}, host syncs an image "
+              f"{syncs}, loc filter keeps per level "
+              f"{', '.join(f'{k:.4f}' for k in kept)}, launches {launches}; "
+              f"inference_policy, TF32 off; card: {smi}")
+        print(f"{label}: source keys without a counterpart: "
+              + "; ".join(notes))
+        if not all(np.isfinite(kept)):
+            raise AssertionError(f"{label}: loc shares {kept}")
+        if on_card and launches != _want():
+            raise AssertionError(f"{label}: port kernel launches {launches}: "
+                                 f"the GA paths run none of them")
+        paths[label] = launches
+        del m
+    return paths
+
+
+def phase_ga_train(smi, names=GA_NAMES, device="cuda", steps=GA_TRAIN_STEPS,
+                   hw=ZOO_HW, pad=ZOO_PAD):
+    """GA-RetinaNet's ga_loss and GA-RPN's ga_rpn_loss trained at full width
+    (_zoo_train_run's loop: train_policy, the port's Optimizer, 12 seeded gt
+    of 16, 1 warm-up + 2 timed steps, no profiled step). Fails on a
+    non-finite term, a trainable head parameter without a gradient, a
+    frozen parameter that changed. Returns the launch counts by path."""
+    import torch
+
+    def make(name, dev):
+        m, source, notes = _ga_model(name, dev)
+        return m, source, notes + _GA_TRAIN_NOTES[name]
+
+    def head_grads(m):
+        head = m.rpn_head if hasattr(m, "rpn_head") else m.bbox_head
+        none = [n for n, p in head.named_parameters() if p.grad is None]
+        zero = [n for n, p in head.named_parameters()
+                if p.grad is not None and not bool(p.grad.any())]
+        print(f"{label}: head parameters {len(list(head.parameters()))}, "
+              f"without a gradient {none}, with an all-zero one {zero}")
+        if none:
+            raise AssertionError(f"{label}: no gradient for {none}")
+
+    paths = {}
+    for name in names:
+        label = f"ga train {name}"
+        launches, m = _zoo_train_run(name, smi, device, hw=hw, pad=pad,
+                                     steps=steps, make=make, stages=None,
+                                     label=label, on_grads=head_grads)
+        paths[label] = launches
+        del m
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+    return paths
+
+
+# tests/ga_parity.py's tiny heads: 3 levels of 32 channels at strides 8-32,
+# 2 deformable groups, the loc filter at 0.5 (about half kept)
+_TINY_GA = {"GuidedAnchorHead": dict(num_classes=5), "GARPNHead": {},
+            "GARetinaHead": dict(num_classes=5, stacked_convs=2)}
+_TINY_GA_KW = dict(in_channels=32, feat_channels=32, anchor_strides=(8, 16, 32),
+                   deformable_groups=2, loc_filter_thr=0.5)
+_TINY_GA_GT = dict(gt_bboxes=np.asarray([[8, 8, 120, 100], [40, 20, 90, 60],
+                                         [44, 24, 100, 70], [0, 0, 0, 0]],
+                                        np.float32),
+                   gt_labels=np.asarray([2, 3, 1, 0], np.int32),
+                   gt_valid=np.asarray([True, True, True, False]))
+_TINY_GA_CFG = dict(ga_assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.3),
+                    assigner=dict(pos_iou_thr=0.5, neg_iou_thr=0.4),
+                    center_ratio=0.2, ignore_ratio=0.5,
+                    ga_sampler=dict(num=64, pos_fraction=0.5))
+_TINY_GA_RPN_CFG = dict(_TINY_GA_CFG, assigner=dict(
+    pos_iou_thr=0.7, neg_iou_thr=0.3, min_pos_iou=0.3),
+    sampler=dict(num=64, pos_fraction=0.5), allowed_border=0)
+_TINY_GA_SHAPE = (128, 256)
+
+
+def _tiny_ga_pair(kind, device):
+    """The CPU head with seeded weights (kernels N(0, 1 / fan_in), biases
+    N(0, 0.02^2), as the CPU tests' fill), its copy on ``device``, and the
+    CPU tests' seeded levels (1, 32, H, W) on the CPU."""
+    import torch
+    from vps_torch.models import ga_heads
+
+    cpu = getattr(ga_heads, kind)(**_TINY_GA[kind], **_TINY_GA_KW,
+                                  device="cpu")
+    gen = torch.Generator().manual_seed(SEED + 17)
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            z = torch.randn(p.shape, generator=gen)
+            p.copy_(z * 0.02 if n.endswith("bias")
+                    else z / np.sqrt(p[0].numel()))
+    card = getattr(ga_heads, kind)(**_TINY_GA[kind], **_TINY_GA_KW,
+                                   device=device)
+    card.load_state_dict(cpu.state_dict(), strict=True)
+    feats = [torch.from_numpy(np.random.RandomState(i).randn(
+        1, 16 >> i, 32 >> i, 32).astype(np.float32)).permute(0, 3, 1, 2)
+        for i in range(3)]
+    return cpu, card, feats
+
+
+# the tiny decode's boxes, card against CPU: the maps differ by ~1e-6 (f32
+# sums in other orders; 1.3e-6 measured on an H100), which the decode's
+# exp scales by box sizes up to 256 px: 1.37e-4 measured at 1e-4 flat
+SMALL_GA_RTOL = 1e-5
+
+
+def phase_small_ga(device="cuda"):
+    """The three GA heads at the CPU tests' tiny shapes, the masked forward
+    and the decode (ga_bboxes; GARPNHead's ga_rpn_proposals) on the card
+    against the port's CPU path with the same weights: equal validity and
+    labels (zoo_parity.assert_dets_match's sets), boxes and scores within
+    its 1e-4 plus SMALL_GA_RTOL of the value."""
+    import torch
+    from vps_torch.models import ga_heads
+    from vps_torch.utils.numerics import inference_policy
+
+    for kind in _TINY_GA:
+        cpu, card, feats = _tiny_ga_pair(kind, device)
+        res = {}
+        for dev, head in (("cpu", cpu), ("card", card)):
+            with inference_policy(), torch.no_grad():
+                outs = head([f.to(dev if dev == "cpu" else device)
+                             for f in feats], masked=True)
+                if kind == "GARPNHead":
+                    r = ga_heads.ga_rpn_proposals(head, *outs, _TINY_GA_SHAPE,
+                                                  nms_pre=200, max_num=100)
+                else:
+                    r = ga_heads.ga_bboxes(head, *outs, _TINY_GA_SHAPE,
+                                           nms_pre=200, max_per_img=30)
+            res[dev] = ([t.cpu() for t in r],
+                        [t.cpu() for lvl in outs for t in lvl])
+        (want, wmaps), (got, gmaps) = res["cpu"], res["card"]
+        if kind == "GARPNHead":
+            boxes, valid = (0, 1), 2
+            same = torch.equal(got[valid], want[valid])
+        else:
+            boxes, valid = (0,), 2
+            same = torch.equal(got[2], want[2]) and torch.equal(got[1],
+                                                                want[1])
+        err = max(float(((got[i] - want[i]).abs()
+                          / (1e-4 + SMALL_GA_RTOL * want[i].abs())).max())
+                  for i in boxes)
+        merr = max(float((g - w).abs().max()) for g, w in zip(gmaps, wmaps))
+        n = int(want[valid].sum())
+        print(f"small ga: {kind} card vs cpu: {n} valid "
+              f"{'equal' if same else 'DIFFER'}, box/score max err "
+              f"{err:.3f} of 1e-4 + {SMALL_GA_RTOL:g} x value (tol 1), "
+              f"masked maps max err {merr:.2e}")
+        if not same or n < 3 or err > 1:
+            raise AssertionError(f"small ga {kind} disagrees between card "
+                                 f"and cpu")
+
+
+def _small_ga_ops(device):
+    """The six losses (value and autograd gradient) and masked_conv2d at
+    GA-RetinaNet's training sizes (its 22400 squares; 80 classes) on the
+    card against the CPU: values within rel 1e-4, gradients and outputs
+    within 1e-4 of their largest. The GHM losses weigh each element by its
+    bin's count: an element whose gradient norm g lies within 1e-6 of a bin
+    edge may fall in the next bin on the card (sigmoid and sqrt differ there
+    by an ulp) and take another weight, so such elements (at most 1e-4 of
+    them) are counted and left out of the gradient's comparison, as the
+    CPU tests leave out a loc score within 1e-6 of its threshold; the
+    value is held whole."""
+    import torch
+    import vps_torch.ops.losses as L
+    from vps_torch.ops.masked_conv import masked_conv2d
+
+    rng = np.random.RandomState(SEED + 18)
+    n = 22400
+    xy = rng.uniform(0, 1200, (n, 2))
+    gt = np.concatenate([xy, xy + rng.uniform(8, 400, (n, 2))], 1)
+    boxes = gt + rng.normal(scale=10.0, size=(n, 4))
+    w = (rng.uniform(size=n) > 0.5).astype(np.float32)
+    d4 = rng.normal(size=(n, 4))
+    cases = {
+        "mse_loss": (d4, (rng.normal(size=(n, 4)),),
+                     dict(weight=w[:, None], avg_factor=np.float32(100))),
+        "balanced_l1_loss": (d4, (rng.normal(size=(n, 4)),),
+                             dict(weight=w[:, None],
+                                  avg_factor=np.float32(100))),
+        "bounded_iou_loss": (boxes, (gt,), dict(weight=w,
+                                                avg_factor=np.float32(100))),
+        "giou_loss": (boxes, (gt,), dict(weight=w,
+                                         avg_factor=np.float32(100))),
+        "ghm_c_loss": (rng.normal(scale=3.0, size=(n, 80)),
+                       (rng.randint(0, 81, n), rng.uniform(size=n) > 0.1),
+                       {}),
+        "ghm_r_loss": (rng.normal(scale=0.05, size=(n, 4)),
+                       (rng.normal(scale=0.05, size=(n, 4)),
+                        rng.uniform(size=n) > 0.1), {}),
+    }
+    worst = []
+    for name, (x, args, kw) in cases.items():
+        out = {}
+        for dev in ("cpu", device):
+            def t(a):
+                a = torch.from_numpy(np.asarray(a))
+                return (a.float() if a.is_floating_point() else a).to(dev)
+
+            tx = t(x).requires_grad_(True)
+            val = getattr(L, name)(tx, *(t(a) for a in args),
+                                   **{k: t(v) for k, v in kw.items()})
+            val.backward()
+            out[dev] = (float(val.detach()), tx.grad.cpu())
+        (wv, wg), (gv, gg) = out["cpu"], out[device]
+        rel = abs(gv - wv) / max(abs(wv), 1e-12)
+        far = torch.ones_like(wg, dtype=torch.bool)
+        if name.startswith("ghm"):
+            xc = torch.from_numpy(np.asarray(x)).float()
+            if name == "ghm_c_loss":
+                t = torch.nn.functional.one_hot(torch.from_numpy(args[0]),
+                                                81)[:, 1:].float()
+                g = (torch.sigmoid(xc) - t).abs()
+                edges = L._ghm_edges(10, 1e-6, "cpu")
+            else:
+                d = xc - torch.from_numpy(args[0]).float()
+                g = (d / torch.sqrt(d * d + 0.02 * 0.02)).abs()
+                edges = L._ghm_edges(10, 1e3, "cpu")
+            far = (g[..., None] - edges).abs().min(-1).values > 1e-6
+        near = int((~far).sum())
+        gerr = (float((gg - wg)[far].abs().max())
+                / float(wg[far].abs().max()))
+        worst.append((name, rel, gerr, near))
+        if rel > 1e-4 or gerr > 1e-4 or near > 1e-4 * far.numel():
+            raise AssertionError(f"small ga ops: {name} card vs cpu: value "
+                                 f"rel {rel:.2e}, gradient {gerr:.2e}, "
+                                 f"{near} elements near a bin edge")
+    x = rng.normal(size=(1, 100, 168, 256)).astype(np.float32)
+    mask = rng.uniform(size=(1, 100, 168)) > 0.5
+    wt = (rng.normal(size=(80, 256, 3, 3)) / 48).astype(np.float32)
+    b = rng.normal(size=80).astype(np.float32)
+    outs = [masked_conv2d(*(torch.from_numpy(a).to(dev)
+                            for a in (x, mask, wt, b))).cpu()
+            for dev in ("cpu", device)]
+    merr = float((outs[1] - outs[0]).abs().max() / outs[0].abs().max())
+    print("small ga ops: card vs cpu at GA-RetinaNet's training sizes: "
+          + ", ".join(f"{k} value rel {r:.2e}, gradient {g:.2e}"
+                      + (f" ({n} elements within 1e-6 of a bin edge left "
+                         f"out)" if k.startswith("ghm") else "")
+                      for k, r, g, n in worst)
+          + f" (tol 1e-4); masked_conv2d (1, 100, 168, 256) -> 80 3x3 "
+          f"{merr:.2e} of its largest (tol 1e-4)")
+    if merr > 1e-4:
+        raise AssertionError("small ga ops: masked_conv2d disagrees")
+
+
+def phase_small_ga_train(device="cuda"):
+    """The three GA heads' loss (ga_loss; GARPNHead's ga_rpn_loss) one step
+    at the CPU tests' tiny shapes, the card against the CPU with the same
+    weights, gt and injected draws, both under train_policy: every approx
+    and MaxIoU assignment and sampled set equal, every term within rel
+    1e-3, every gradient within SMALL_ZOO_GRAD_TOL of its tensor's largest;
+    then the six losses and masked_conv2d at training sizes
+    (_small_ga_ops)."""
+    import torch
+    import vps_torch.core.sampler as tsampler
+    import vps_torch.core.targets as ttargets
+    from vps_torch.models import ga_heads
+    from vps_torch.utils.numerics import train_policy
+
+    wrapped = [(ga_heads, "approx_max_iou_assign"),
+               (ga_heads, "max_iou_assign"), (ttargets, "max_iou_assign"),
+               (ga_heads, "random_sample"), (ttargets, "random_sample")]
+    saved = [(m, a, getattr(m, a)) for m, a in wrapped] + [
+        (tsampler, "uniform", tsampler.uniform)]
+    for kind in _TINY_GA:
+        cpu, card, feats = _tiny_ga_pair(kind, device)
+        runs = {}
+        for dev, head in (("cpu", cpu), ("card", card)):
+            calls, sel = [0], []
+
+            def feed(gen, shape, device):
+                calls[0] += 1
+                r = np.random.RandomState(100 + calls[0]).rand(*shape)
+                return torch.from_numpy(r.astype(np.float32)).to(device)
+
+            def record(fn):
+                def run(*a, **k):
+                    res = fn(*a, **k)
+                    sel.append((res.inds.cpu(), res.valid.cpu())
+                               if hasattr(res, "inds") else
+                               (res.assigned_gt_inds.cpu(), None))
+                    return res
+                return run
+
+            d = torch.device("cpu") if dev == "cpu" else torch.device(device)
+            gt = {k: torch.from_numpy(v).to(d) for k, v in _TINY_GA_GT.items()}
+            for m, a, fn in saved[:-1]:
+                setattr(m, a, record(fn))
+            tsampler.uniform = feed
+            try:
+                with train_policy():
+                    outs = head([f.to(d) for f in feats])
+                    if kind == "GARPNHead":
+                        losses = ga_heads.ga_rpn_loss(
+                            None, head, *outs, gt["gt_bboxes"],
+                            gt["gt_valid"], _TINY_GA_SHAPE, _TINY_GA_RPN_CFG)
+                    else:
+                        losses = ga_heads.ga_loss(
+                            None, head, *outs, gt["gt_bboxes"],
+                            gt["gt_labels"], gt["gt_valid"], _TINY_GA_SHAPE,
+                            _TINY_GA_CFG)
+                    sum(losses.values()).backward()
+            finally:
+                for m, a, fn in saved:
+                    setattr(m, a, fn)
+            runs[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                         {n: p.grad.cpu() for n, p in head.named_parameters()
+                          if p.grad is not None}, sel)
+        (want, gw, ws), (got, gg, gs) = runs["cpu"], runs["card"]
+
+        def same(a, b):
+            if a[1] is None:
+                return b[1] is None and torch.equal(a[0], b[0])
+            return (torch.equal(a[1], b[1])
+                    and torch.equal(a[0][a[1]], b[0][b[1]]))
+
+        same_sel = len(ws) == len(gs) and all(same(a, b)
+                                              for a, b in zip(ws, gs))
+        rel = max(abs(got[k] - v) / max(abs(v), 1e-6) for k, v in want.items())
+        gmax = max(float(g.abs().max()) for g in gw.values())
+        gerr = max(float((gg[n] - g).abs().max())
+                   / (float(g.abs().max()) + 1e-6 * gmax / SMALL_ZOO_GRAD_TOL)
+                   for n, g in gw.items() if n in gg)
+        print(f"small ga train: {kind} card vs cpu: {len(want)} terms, worst "
+              f"rel err {rel:.2e} (tol 1e-3), assignments and sampled sets "
+              f"{len(ws)} {'equal' if same_sel else 'DIFFER'}, {len(gw)} "
+              f"gradients of {len(list(cpu.parameters()))} parameters, worst "
+              f"err {gerr:.2e} of the tensor's largest "
+              f"(tol {SMALL_ZOO_GRAD_TOL:g})")
+        if (set(got) != set(want) or not same_sel or len(ws) < 3
+                or rel > 1e-3 or set(gg) != set(gw)
+                or len(gw) != len(list(cpu.parameters()))
+                or gerr > SMALL_ZOO_GRAD_TOL):
+            raise AssertionError(f"small ga train {kind} disagrees between "
+                                 f"card and cpu")
+    _small_ga_ops(device)
 
 
 def _timed(name, fn, *args, **kw):
@@ -4447,6 +5123,10 @@ def main() -> int:
     paths.update(_timed("backbones train", phase_backbones_train, smi))
     _timed("small backbones train", phase_small_zoo_train,
            cfgs=_tiny_backbone_cfgs(), label="small backbones train")
+    paths.update(_timed("ga", phase_ga, smi))
+    _timed("small ga", phase_small_ga)
+    paths.update(_timed("ga train", phase_ga_train, smi))
+    _timed("small ga train", phase_small_ga_train)
     paths.update(_timed(
         "dataset (robustness and detection eval included)", phase_dataset,
         smi, numerics, then=(lambda fx: phase_robustness(smi, fx),

@@ -22,8 +22,8 @@ def test_port_imports_no_jax():
     """vps_torch and chip_smoke.py import nothing of jax, flax, optax or
     vps_tpu (static check over every module's import statements), the
     training, data, eval, tools, utils and config modules included (the
-    detection evaluation's, the single-stage detectors' and the
-    backbones' too)."""
+    detection evaluation's, the single-stage detectors', the backbones'
+    and guided anchoring's too)."""
     banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
@@ -47,7 +47,8 @@ def test_port_imports_no_jax():
         "tools/convert_datasets/pascal_voc", "models/anchor_heads",
         "models/reppoints", "models/ssd_vgg", "models/detectors/single_stage",
         "ops/anchors", "ops/deform_conv", "models/plugins", "models/hrnet",
-        "ops/roi_pool")}
+        "ops/roi_pool", "models/ga_heads", "ops/masked_conv",
+        "data/extra_aug")}
     assert required <= names, required - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -26,6 +26,11 @@ block<j>`` and ``fuse<i>_<j>[_ds<s>]`` become ``transition<s+1>.<b>``
 (a new branch one Sequential deeper), ``stage<n>.<m>.branches.<b>.<j>``
 and ``fuse_layers.<i>.<j>[.<s>]``; HRFPN's ``reduction`` and
 ``fpn_conv<i>`` become ``reduction_conv.conv`` and ``fpn_convs.<i>.conv``.
+The guided-anchoring heads' trees (GuidedAnchorHead, GARPNHead,
+GARetinaHead), on their own or under ``bbox_head`` / ``rpn_head``: a
+FeatureAdaption's ``weight`` becomes ``conv_adaption.weight``, the masked
+convs' ``<conv>_weight`` / ``<conv>_bias`` parameters ``<conv>.weight`` /
+``.bias``, ``cls_conv<i>`` ``cls_convs.<i>.conv``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,11 @@ _BN = {"scale": "weight", "bias": "bias", "mean": "running_mean",
 _GN = {"scale": "weight", "bias": "bias"}
 _FLOW_NETS = "flownetc|flownets_1|flownets_2|flownets_d|flownetfusion"
 _BLOCK = r"(backbone|shared_head)/layer(\d+)_(\d+)"
+# a guided-anchoring head's tree: on its own, or under bbox_head / rpn_head
+_GA = r"(?:(bbox_head|rpn_head)/)?"
+_GA_MASKED = {f"{conv}_{leaf}": f"{conv}.{leaf}"
+              for conv in ("conv_cls", "conv_reg", "retina_cls", "retina_reg")
+              for leaf in ("weight", "bias")}
 
 
 # (pattern over the '/'-joined flax path minus its leaf, torch key template,
@@ -231,6 +241,16 @@ RULES: List[Tuple[str, str, Dict[str, str], Callable]] = [
      linear_w),
     (r"extra_neck/refine_att/spatial/Conv_0", "extra_neck.refine_att.spatial",
      _WB, conv_w),
+    # the guided-anchoring heads ({pfx}: "bbox_head." / "rpn_head." or "")
+    (rf"{_GA}(conv_loc)", "{pfx}{1}", _WB, conv_w),
+    (rf"{_GA}(conv_shape|rpn_conv)/Conv_0", "{pfx}{1}", _WB, conv_w),
+    (rf"{_GA}(feature_adaption(?:_cls|_reg)?)/conv_offset/Conv_0",
+     "{pfx}{1}.conv_offset", _WB, conv_w),
+    (rf"{_GA}(feature_adaption(?:_cls|_reg)?)", "{pfx}{1}",
+     {"weight": "conv_adaption.weight"}, conv_w),
+    (rf"{_GA}(cls|reg)_conv(\d+)/Conv_0", "{pfx}{1}_convs.{2}.conv", _WB,
+     conv_w),
+    (r"(bbox_head|rpn_head)?", "{pfx}", _GA_MASKED, conv_w),
     # the single-stage detectors' heads (vps_tpu's head_m): RetinaHead,
     # FCOSHead, SSDHead and RepPointsHead under mmdet's bbox_head names
     (r"head/(cls|reg)_conv(\d+)/Conv_0", "bbox_head.{0}_convs.{1}.conv", _WB,
@@ -297,10 +317,13 @@ def _rule_key(path: Tuple[str, ...]):
                 # stage si + 2 adds branch si + 1: a stride-2 conv of the
                 # last branch, one Sequential deeper
                 extra["tr"] = f"{si + 1}.{br}" + (".0" if br > si else "")
+            if "{pfx}" in tmpl:
+                extra["pfx"] = f"{groups[0]}." if groups[0] else ""
             if "{vgg}" in tmpl:
                 extra["vgg"] = vgg_feature_index(int(groups[0]),
                                                  int(groups[1]))
-            key = tmpl.format(*groups, **extra) + "." + leaf_map[leaf]
+            key = ".".join(filter(None, (tmpl.format(*groups, **extra)
+                                         .rstrip("."), leaf_map[leaf])))
             every_leaf = fn is layer_norm_chw
             return key, (fn if every_leaf or leaf_map[leaf].endswith("weight")
                          else None)
@@ -311,11 +334,11 @@ def state_dict_from_jax(params, batch_stats=None) -> Dict[str, torch.Tensor]:
     """flax ``params`` (and ``batch_stats``) trees of a PanopticFuseTrack,
     PanopticFuse or PanopticTrack (either fuse neck, either refine type), of
     a two-stage or cascade R-CNN of the zoo (on any of the ResNet, ResNeXt
-    or HRNet backbones, with the ResNet's plugins), or of RetinaNet, FCOS,
-    SSD or RepPointsDetector, as numpy arrays -> the port's mmdet-named
-    state_dict (float32 tensors), accepted by the same
-    detector's ``load_state_dict(strict=True)``: a tower the tree lacks has
-    no keys."""
+    or HRNet backbones, with the ResNet's plugins), of RetinaNet, FCOS,
+    SSD or RepPointsDetector, or of a guided-anchoring head, as numpy arrays
+    -> the port's mmdet-named state_dict (float32 tensors), accepted by the
+    same detector's (or head's) ``load_state_dict(strict=True)``: a tower
+    the tree lacks has no keys."""
     sd: Dict[str, torch.Tensor] = {}
     for tree in (params, batch_stats or {}):
         for path, value in _flatten(tree):

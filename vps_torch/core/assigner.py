@@ -1,5 +1,6 @@
-"""MaxIoU and point assignment (port of vps_tpu/core/assigner.py:
-``AssignResult``, ``max_iou_assign`` and RepPoints' ``point_assign``),
+"""MaxIoU, approx-MaxIoU and point assignment (port of
+vps_tpu/core/assigner.py: ``AssignResult``, ``max_iou_assign``, guided
+anchoring's ``approx_max_iou_assign`` and RepPoints' ``point_assign``),
 static shape and masked.
 
 Semantics of mmdet's MaxIoUAssigner: -1 neutral, 0 negative, k + 1 assigned
@@ -29,14 +30,45 @@ def max_iou_assign(bboxes, gt_bboxes, pos_iou_thr: float, neg_iou_thr: float,
                    bbox_valid=None, gt_valid=None,
                    gt_max_assign_all: bool = True) -> AssignResult:
     n, g = bboxes.shape[0], gt_bboxes.shape[0]
-    dev = bboxes.device
+    bbox_valid, gt_valid = _valid(n, g, bbox_valid, gt_valid, bboxes.device)
+    return _assign(bbox_overlaps(bboxes, gt_bboxes), bbox_valid, gt_valid,
+                   pos_iou_thr, neg_iou_thr, min_pos_iou, gt_labels, gt_pids,
+                   gt_max_assign_all)
+
+
+def approx_max_iou_assign(approxs, gt_bboxes, pos_iou_thr: float,
+                          neg_iou_thr: float, min_pos_iou: float = 0.0,
+                          approxs_per_octave: int = 1, gt_labels=None,
+                          bbox_valid=None, gt_valid=None) -> AssignResult:
+    """ApproxMaxIoUAssigner (guided anchoring): each location owns
+    ``approxs_per_octave`` approximate boxes, contiguous (location-major
+    approxs (N * A, 4)), and is assigned by the largest overlap of its
+    approxs, under MaxIoU's rules (the low-quality step on). ``bbox_valid``
+    is (N,)."""
+    n, g = approxs.shape[0] // approxs_per_octave, gt_bboxes.shape[0]
+    bbox_valid, gt_valid = _valid(n, g, bbox_valid, gt_valid, approxs.device)
+    overlaps = bbox_overlaps(approxs, gt_bboxes).reshape(
+        n, approxs_per_octave, g).max(1).values
+    return _assign(overlaps, bbox_valid, gt_valid, pos_iou_thr, neg_iou_thr,
+                   min_pos_iou, gt_labels)
+
+
+def _valid(n, g, bbox_valid, gt_valid, dev):
     if bbox_valid is None:
         bbox_valid = torch.ones(n, dtype=torch.bool, device=dev)
     if gt_valid is None:
         gt_valid = torch.ones(g, dtype=torch.bool, device=dev)
+    return bbox_valid, gt_valid
+
+
+def _assign(overlaps, bbox_valid, gt_valid, pos_iou_thr, neg_iou_thr,
+            min_pos_iou, gt_labels=None, gt_pids=None,
+            gt_max_assign_all: bool = True) -> AssignResult:
+    """MaxIoU's rules on the (N, G) overlaps of the valid pairs."""
+    n, g = overlaps.shape
+    dev = overlaps.device
     pair_ok = bbox_valid[:, None] & gt_valid[None, :]
-    overlaps = torch.where(pair_ok, bbox_overlaps(bboxes, gt_bboxes),
-                           torch.zeros((), device=dev))
+    overlaps = torch.where(pair_ok, overlaps, torch.zeros((), device=dev))
     max_overlaps, argmax_overlaps = overlaps.max(1)
 
     assigned = torch.full((n,), -1, dtype=torch.long, device=dev)

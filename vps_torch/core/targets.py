@@ -9,7 +9,11 @@ from typing import NamedTuple
 
 import torch
 
-from vps_torch.core.assigner import AssignResult, max_iou_assign
+from vps_torch.core.assigner import (
+    AssignResult,
+    approx_max_iou_assign,
+    max_iou_assign,
+)
 from vps_torch.core.sampler import (
     SampleResult,
     combined_sample,
@@ -25,17 +29,28 @@ from vps_torch.ops.mask import crop_and_resize_indexed
 
 def assign_from_cfg(cfg, bboxes, gt_bboxes, gt_labels=None, gt_pids=None,
                     bbox_valid=None, gt_valid=None) -> AssignResult:
-    """``type=`` dispatch over assigners; MaxIoUAssigner, the only one the
-    two-stage and cascade detectors use, is the only one ported."""
+    """``type=`` dispatch over assigners: MaxIoUAssigner (the default) and
+    guided anchoring's ApproxMaxIoUAssigner (``bboxes`` its approxs,
+    ``approxs_per_octave`` of them a location; no pids)."""
     typ = cfg.get("type", "MaxIoUAssigner")
-    if typ != "MaxIoUAssigner":
-        raise KeyError(f"assigner type {typ!r} is not ported (ROADMAP.md "
-                       "queue 1 item 5 (c): the single-stage family)")
-    return max_iou_assign(
-        bboxes, gt_bboxes, pos_iou_thr=cfg["pos_iou_thr"],
-        neg_iou_thr=cfg["neg_iou_thr"], min_pos_iou=cfg.get("min_pos_iou", 0.0),
-        gt_labels=gt_labels, gt_pids=gt_pids, bbox_valid=bbox_valid,
-        gt_valid=gt_valid, gt_max_assign_all=cfg.get("gt_max_assign_all", True))
+    if typ == "MaxIoUAssigner":
+        return max_iou_assign(
+            bboxes, gt_bboxes, pos_iou_thr=cfg["pos_iou_thr"],
+            neg_iou_thr=cfg["neg_iou_thr"],
+            min_pos_iou=cfg.get("min_pos_iou", 0.0), gt_labels=gt_labels,
+            gt_pids=gt_pids, bbox_valid=bbox_valid, gt_valid=gt_valid,
+            gt_max_assign_all=cfg.get("gt_max_assign_all", True))
+    if typ == "ApproxMaxIoUAssigner":
+        if gt_pids is not None:
+            raise NotImplementedError("ApproxMaxIoUAssigner carries no pids "
+                                      "(mmdet's has none)")
+        return approx_max_iou_assign(
+            bboxes, gt_bboxes, pos_iou_thr=cfg["pos_iou_thr"],
+            neg_iou_thr=cfg["neg_iou_thr"],
+            min_pos_iou=cfg.get("min_pos_iou", 0.0),
+            approxs_per_octave=cfg.get("approxs_per_octave", 1),
+            gt_labels=gt_labels, bbox_valid=bbox_valid, gt_valid=gt_valid)
+    raise KeyError(f"unknown assigner type {typ!r}")
 
 
 def sample_from_cfg(generator, cfg, assign: AssignResult,

@@ -922,8 +922,10 @@ def make_frame_step(det: PanopticFuseTrack, track_cap: int = 256,
 
 # the box heads' classifiers: bbox_head.fc_cls, a cascade's bbox_head.{i}.fc_cls
 _CLS = r"^bbox_head\.(\d+\.)?fc_cls$"
-# the single-stage heads' sigmoid classifiers
-_SIGMOID_CLS = r"^bbox_head\.(retina_cls|fcos_cls|reppoints_cls_out)$"
+# the single-stage heads' sigmoid classifiers, and the guided-anchoring
+# heads' location convs
+_SIGMOID_CLS = (r"^bbox_head\.(retina_cls|fcos_cls|reppoints_cls_out)$"
+                r"|^(bbox_head|rpn_head)\.conv_loc$")
 
 
 # HRNet's fuse paths: fuse_layers.<i>.<j>.1 (upsample: conv, BN) and
@@ -951,7 +953,8 @@ def random_init_(det: nn.Module, seed: int = 0) -> nn.Module:
     wide classifier so some proposals clear the 0.6 panoptic score
     threshold (and, for the R-CNN zoo's detectors, their 81-way softmax's
     0.05; every box head's ``fc_cls``, a cascade's included). The single-stage heads' sigmoid
-    classifiers get the focal-loss prior bias -log(99) (their own init), an
+    classifiers and the guided-anchoring heads' loc convs get the focal-loss
+    prior bias -log(99) (their own init), an
     L2Norm or a FCOS scale stays near its initial value and RepPoints'
     moment transfer near 0. Any of the port's detectors."""
     gen = torch.Generator().manual_seed(seed)

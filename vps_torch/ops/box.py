@@ -29,11 +29,13 @@ def bbox2delta(proposals, gt, means=(0.0, 0.0, 0.0, 0.0),
     return (deltas - means) / stds
 
 
-def delta2bbox(rois, deltas, max_shape=None, means=None, stds=None):
+def delta2bbox(rois, deltas, max_shape=None, means=None, stds=None,
+               wh_ratio_clip: float = 16 / 1000):
     """rois (N, 4), deltas (N, 4K) -> boxes (N, 4K). ``means`` / ``stds``
     (4 each) denormalise the deltas first, deltas * stds + means, as the
     R-CNN heads' targets were coded; None (the RPN's 0 and 1) uses them as
-    they are."""
+    they are. dw and dh are clipped to |log(wh_ratio_clip)| (guided
+    anchoring decodes its shapes with 1e-6)."""
     if means is not None or stds is not None:
         k = deltas.shape[-1] // 4
         m = torch.tensor(tuple(means or (0.0,) * 4), dtype=torch.float32,
@@ -45,7 +47,7 @@ def delta2bbox(rois, deltas, max_shape=None, means=None, stds=None):
     dy = deltas[..., 1::4]
     dw = deltas[..., 2::4]
     dh = deltas[..., 3::4]
-    max_ratio = abs(math.log(16 / 1000))  # wh_ratio_clip
+    max_ratio = abs(math.log(wh_ratio_clip))
     dw = dw.clamp(-max_ratio, max_ratio)
     dh = dh.clamp(-max_ratio, max_ratio)
     px = ((rois[..., 0] + rois[..., 2]) * 0.5)[..., None]
