@@ -30,7 +30,7 @@ Phases, each printing its own line of numbers:
                  seeded synthetic 800x1600 sample (things and stuff rendered
                  with numpy, gt padded to 100, a reference frame), batch 1,
                  `fusetrack_train_cfg`, through the port's Runner: 1 warm-up
-                 and 5 timed SGD steps; prints s/step, peak memory, every
+                 and 3 timed SGD steps; prints s/step, peak memory, every
                  loss term at the first and last step; fails on a non-finite
                  loss, a skipped step, an unchanged trainable or a changed
                  frozen parameter, or a kernel that did not launch. Before
@@ -47,7 +47,7 @@ Phases, each printing its own line of numbers:
                  it, the card form of tests/test_aug_test.py:54 (one
                  identity variant against predict).
      ohem train -- "train" with the RCNN sampler OHEM (num 512), 1 warm-up
-                 and 3 timed steps.
+                 and 2 timed steps.
   4. small    -- the tiny `exact` model on a 64x128 clip on the card against
                  the same model's plain CPU path: equal detections and keep
                  sets, >= 0.999 semantic/panoptic agreement; the same with
@@ -94,12 +94,12 @@ Phases, each printing its own line of numbers:
   6. viper    -- VIPER from files to VPQ: a synthetic fixture in VIPER's
                  format at 1080x1920 (tests/viper_fixture.py: 23 classes,
                  things 13..22; 1 train video of 2 frames, 2 val videos of
-                 10), vps_torch.tools.train on the port's
+                 5), vps_torch.tools.train on the port's
                  configs/viper/fusetrack.py (R-50, f32, 2 steps),
                  tools.test_vpq at half-flow streamed (--chunk 4 --streams
                  2) and frame by frame (--chunk 1), VIPER's evaluator at
-                 windows 1, 5 and 10 (15 needs longer videos; cut for the
-                 script's time) and tools.eval_ipq, in this process;
+                 windows 1 and 5 (10 and 15 need longer videos; cut for
+                 the script's time) and tools.eval_ipq, in this process;
                  fails on a non-finite loss, a skipped step, a frame
                  without an artifact, the two test_vpq runs not byte-equal,
                  PQ outside [0, 100], the GT not scoring 100 against itself
@@ -127,7 +127,7 @@ Phases, each printing its own line of numbers:
                  16; HTC's semantic labels at stride 8), backward and the
                  port's Optimizer (momentum 0.9, weight decay 1e-4, clip 35,
                  lr 0.02/16), f32, TF32 off, under train_policy: 1 warm-up +
-                 3 steps for Mask R-CNN, Cascade Mask R-CNN and HTC, 1 + 2
+                 2 steps for Mask R-CNN, Cascade Mask R-CNN and HTC, 1 + 1
                  for the other six ("zoo train ...", Fast R-CNN on the RPN's
                  2000 proposals); prints s/step, peak memory, host syncs a
                  step, every loss term, nonfinite_skips and the named ranges
@@ -155,7 +155,7 @@ Phases, each printing its own line of numbers:
                  image (RepPoints' DCNs in the range reppoints_dcn); the
                  tiny configs of the CPU tests on the card against the CPU
                  ("small single stage"); the four trained at full width as
-                 "zoo train" (1 warm-up + 2 steps, 12 seeded gt of 16,
+                 "zoo train" (1 warm-up + 1 step, 12 seeded gt of 16,
                  train_policy, "single stage train <name>"); and their tiny
                  loss one step on the card against the CPU ("small single
                  stage train": equal assignments, SSD's kept hard negatives
@@ -177,7 +177,7 @@ Phases, each printing its own line of numbers:
                  of locations the loc filter keeps per level, one image
                  profiled by backbone_fpn, ga_head, feature_adaption,
                  ga_dets / ga_proposals; their training (ga_loss /
-                 ga_rpn_loss, 1 warm-up + 2 steps, train_policy, "ga train
+                 ga_rpn_loss, 1 warm-up + 1 step, train_policy, "ga train
                  <name>": fails on a non-finite term, a head parameter
                  without a gradient or a changed frozen one); the tiny heads
                  of the CPU tests on the card against the CPU ("small ga":
@@ -188,8 +188,34 @@ Phases, each printing its own line of numbers:
                  generalised IoU and GHM losses and masked_conv2d at
                  GA-RetinaNet's training sizes). No port
                  kernel runs on these paths: each fails on one launched.
+ 12. dist     -- data-parallel training across processes
+                 (vps_torch.train.dist). "dist world 1", after the train
+                 phase: its Runner for 2 steps without a process group and
+                 at world size 1 over NCCL (init_dist, the broadcast, the
+                 gradients' all-reduce, rank 0's checkpoint), from the same
+                 weights, batches and generator: the parameters must be
+                 bitwise equal. "dist step", after "ohem train": one step at
+                 full width on a global batch of 2 in this process, then on
+                 2 ranks (processes of their own, both on card 0, so over
+                 gloo: NCCL refuses two ranks on one card), one sample
+                 each: loss terms, all-reduced gradients and parameters
+                 within DIST_TERM_TOL, DIST_GRAD_TOL, DIST_PARAM_TOL of the
+                 one process's, the ranks bitwise equal; each rank's peak
+                 memory, launches and the all-reduce's share of its step.
+                 "dist train", in the dataset phase on its fixture:
+                 vps_torch/tools/dist_train.sh NPROC=2 --dist-backend gloo
+                 --device cuda:0, 2 epochs of 1 step, the eval hook each
+                 epoch (each rank its val video, merged on rank 0): both
+                 ranks exit 0, one checkpoint, hosts=2 in train.log, rank 1
+                 logs nothing below ERROR, each epoch's merge holds every
+                 val frame once; each rank's launches from the file it
+                 writes.
+ 13. native   -- the native host library (vps_torch.native, g++) against
+                 its numpy versions on seeded masks and boxes, with host ms
+                 of each; the detection eval's IoU goes through it.
 Each path is driven with every launch count set to 0 just before it and read
-just after. Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
+just after (a rank process counts its own; "dist step" and "dist train" sum
+the ranks'). Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
 ``launches_by_path``), the nvidia-smi line and, last, the result line
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0, no
@@ -229,23 +255,23 @@ WINDOW = 4  # panoptic.dcn_window of the windowed path
 DCN_LEVELS = [(H // 4 >> i, W // 4 >> i) for i in range(4)]
 DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
 # training: the reference crop (vps_tpu/data/transforms.py), gt padded to
-# max_gt, 1 warm-up + 5 timed steps; LiteFlowNetCorr's input at that crop
+# max_gt, 1 warm-up + 3 timed steps; LiteFlowNetCorr's input at that crop
 # (the 1/4 FPN level)
 TRAIN_H, TRAIN_W, MAX_GT = 800, 1600, 100
-TRAIN_STEPS = 6
+TRAIN_STEPS = 4
 # the "ohem train" path: the RCNN sampler OHEM, as mmdet's OHEM configs set
-# it, 1 warm-up + 3 timed steps
+# it, 1 warm-up + 2 timed steps
 OHEM = dict(type="OHEMSampler", num=512, pos_fraction=0.25)
-OHEM_STEPS = 4
+OHEM_STEPS = 3
 TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
 # the "viper" phase: a synthetic fixture in VIPER's format at its frame size
 # (1 train video of 2 frames, 2 val videos of 15: VIPER's largest VPQ
 # window); the test scale (2048, 1024) takes the frame to 1820x1024, padded
 # to 1824x1024; LiteFlowNetCorr's input is its 1/4 level
 VIPER_H, VIPER_W = 1080, 1920
-# 10 val frames a video, for the script's time: VIPER's windows 1, 5, 10
-# (15 would need 15)
-VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 2, 2, 10
+# 5 val frames a video, for the script's time: VIPER's windows 1 and 5 (10
+# and 15 would need 10 and 15; the CPU tests run all four)
+VIPER_TRAIN_FRAMES, VIPER_VAL_VIDEOS, VIPER_VAL_FRAMES = 2, 2, 5
 VIPER_CHUNK, VIPER_STREAMS = 4, 2
 VIPER_TEST = (1024, 1824)
 VIPER_CORR = (1, VIPER_TEST[0] // 4, VIPER_TEST[1] // 4, 256)
@@ -738,12 +764,9 @@ def _reset_counts():
 
 def _counts():
     """The launch counts since _reset_counts, by kernel."""
-    from vps_torch.ops import (correlation, correlation_backward,
-                               deform_conv2d_windowed)
+    from vps_torch.ops import launch_counts
 
-    return dict(correlation.route_launches,
-                corr_backward=correlation_backward.launches,
-                dcw_fused=deform_conv2d_windowed.launches)
+    return launch_counts()
 
 
 def _want(**counts):
@@ -1024,14 +1047,16 @@ def _losses_line(losses):
 
 
 def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
-                steps=TRAIN_STEPS, sampler=None):
+                steps=TRAIN_STEPS, sampler=None, then=None):
     """FuseTrack training at full width (R-50, f32 compute as the trainer's
     default, fusetrack_train_cfg, batch 1) through the port's Runner over a
     synthetic sample: 1 warm-up step, then ``steps - 1`` timed ones (host
     clock around each step, ending in a synchronize). ``sampler``: the RCNN
     sampler's config in place of fusetrack_train_cfg's RandomSampler (the
     "ohem train" path); the determinism probe and the profiled step run only
-    without it. Returns the launch counts of the run."""
+    without it. ``then(det, loader)``: called last, with the trained
+    detector and the loader ("dist world 1"). Returns the launch counts of
+    the run."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import PanopticFuseTrack, random_init_
@@ -1108,6 +1133,8 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
         from vps_torch.profile import train_step
         train_step(det, loader.batch, state.optimizer,
                    torch.Generator(device=device).manual_seed(SEED))
+    if then is not None:
+        then(det, loader)
     return launches
 
 
@@ -1183,7 +1210,8 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
     scored by eval_vpq. ``tiny``: the tiny model and pipelines at h x w, for
     a CPU rehearsal. ``then``: phases that run on the fixture and the
     checkpoint before they are removed, each called with a dict of their
-    paths (``cfg``, ``ckpt``, ``val_ann``, ``val_img``, ``tmp``) and
+    paths (``cfg``, ``ckpt``, ``val_ann``, ``val_img``, ``tmp``) and sizes
+    (``val_frames``, ``val_videos``, ``tiny``, ``h``, ``w``) and
     returning its launch counts by path. Returns the launch counts of the
     train, test and aug runs (and of ``then``'s paths) by path."""
     import torch
@@ -1296,7 +1324,10 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
         later = {}
         for phase in then:
             later.update(phase(dict(cfg=cfg_path, ckpt=ckpt, val_ann=val_ann,
-                                    val_img=val_img, tmp=tmp)))
+                                    val_img=val_img, tmp=tmp,
+                                    val_frames=val_frames,
+                                    val_videos=val_videos, tiny=tiny, h=h,
+                                    w=w)))
 
     n_val = val_videos * val_frames
     steps = [r["time"] for r in hist[1:]]
@@ -3102,7 +3133,7 @@ def phase_small_zoo(device="cuda", cfgs=None, label="small zoo"):
 ZOO_TRAIN_GT = 16  # gt capacity of a zoo train sample; 12 boxes valid
 ZOO_TRAIN_THINGS = 12
 ZOO_LR = 0.02 / 16  # mmdet v1's lr 0.02 for 16 images, for one image
-# 1 warm-up + 3 timed steps for the first three, 1 + 2 for the rest; Fast
+# 1 warm-up + 2 timed steps for the first three, 1 + 1 for the rest; Fast
 # R-CNN takes the RPN's proposals (the rpn run comes first)
 ZOO_TRAIN_LONG = ("mask_rcnn", "cascade_mask_rcnn", "htc")
 ZOO_TRAIN_OTHERS = ("rpn", "fast_rcnn", "faster_rcnn", "double_head",
@@ -3242,7 +3273,7 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     import torch
     from vps_torch.utils.numerics import train_policy
 
-    steps = steps or (4 if name in ZOO_TRAIN_LONG else 3)
+    steps = steps or (3 if name in ZOO_TRAIN_LONG else 2)
     t0 = time.perf_counter()
     det, source, notes = (make or _zoo_train_det)(name, device)
     args = _zoo_train_args(det, device, proposals, hw, pad)
@@ -3484,7 +3515,7 @@ BACKBONE_NAMES = ("dcn_mask_rcnn", "mdconv_g4_faster_rcnn", "gcb_mask_rcnn",
                   "attention_faster_rcnn", "x101_mask_rcnn",
                   "hrnet_faster_rcnn")
 BACKBONE_IMAGES = 3  # timed, after 1 warm-up
-BACKBONE_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+BACKBONE_TRAIN_STEPS = 2  # 1 warm-up + 1 timed
 _BACKBONE_RANGES = ("backbone", "backbone_dcn", "backbone_attention",
                   "backbone_gcb", "neck")
 BACKBONE_STAGES = ("backbone_fpn",) + _BACKBONE_RANGES + ("rpn", "bbox_dets",
@@ -3799,7 +3830,7 @@ SINGLE_NAMES = ("retinanet", "fcos", "reppoints", "ssd300")
 SINGLE_STAGES = ("backbone_fpn", "bbox_head", "reppoints_dcn", "bbox_dets")
 SINGLE_TRAIN_STAGES = ("backbone_fpn", "bbox_head", "reppoints_dcn",
                        "bbox_loss")
-SINGLE_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+SINGLE_TRAIN_STEPS = 2  # 1 warm-up + 1 timed
 _FOCAL = dict(type="FocalLoss", use_sigmoid=True, gamma=2.0, alpha=0.25,
               loss_weight=1.0)
 _DENSE_TEST = dict(nms_pre=1000, min_bbox_size=0, score_thr=0.05,
@@ -4415,7 +4446,7 @@ def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
 
 GA_NAMES = ("ga_retinanet", "ga_rpn")
 GA_IMAGES = 2  # timed, after 1 warm-up
-GA_TRAIN_STEPS = 3  # 1 warm-up + 2 timed
+GA_TRAIN_STEPS = 2  # 1 warm-up + 1 timed
 GA_STAGES = ("backbone_fpn", "ga_head", "feature_adaption", "ga_dets",
              "ga_proposals")
 _CAFFE_R50 = dict(type="ResNet", depth=50, num_stages=4,
@@ -5055,6 +5086,562 @@ def phase_small_ga_train(device="cuda"):
     _small_ga_ops(device)
 
 
+# ---------------------------------------------------------------------------
+# Data-parallel training across processes: the Runner at world size 1 over
+# NCCL, one step on 2 ranks of one card over gloo against the same step in
+# one process, the train tool on 2 ranks through dist_train.sh; and the
+# native host library
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT = 600  # s a rank process (or the launcher) may take
+DIST_STEPS = 2  # "dist world 1": the Runner's steps, with and without NCCL
+DIST_LR = 0.005  # "dist step": a constant learning rate
+# "dist step": the in-process batch and the ranks' all-reduced gradients
+# agree within these (f32 sums in other orders; the CPU test measured 1.7e-7
+# of a tensor's largest gradient, 7.4e-8 of its largest parameter)
+DIST_TERM_TOL = 1e-5  # relative, each loss term
+DIST_GRAD_TOL = (1e-5, 1e-7)  # of the tensor's largest, of the largest of all
+DIST_PARAM_TOL = 1e-6  # of the tensor's largest
+DIST_TRAIN_CONFIG = """
+_base_ = r"{base}"
+data = dict(val=dict(ann_file=r"{val_ann}", img_prefix=r"{val_img}",
+                     ref_prefix=r"{val_img}", nframes_span_test={frames}))
+evaluation = dict(interval=1)
+checkpoint_config = dict(interval=4)
+log_config = dict(interval=1)
+total_epochs = 2
+"""
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _start(cmd, env=None):
+    """A process in a session of its own (so _finish can stop its whole
+    group), from the repo root, its output to a temporary file."""
+    out = tempfile.TemporaryFile()
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                            env=env, stdout=out, stderr=subprocess.STDOUT,
+                            start_new_session=True)
+    proc.out = out
+    return proc
+
+
+def _finish(procs, what):
+    """Wait for every process, DIST_TIMEOUT s at most; as soon as one fails
+    (its peers would wait in a collective) or the time is up, kill every
+    process group and raise with each one's output's tail. Returns the
+    outputs."""
+    import signal
+
+    deadline = time.time() + DIST_TIMEOUT
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p in procs):
+            bad = [i for i, p in enumerate(procs)
+                   if p.poll() not in (None, 0)]
+            if bad:
+                failed = f"process {bad[0]} exited with {procs[bad[0]].returncode}"
+            elif time.time() > deadline:
+                failed = f"a process ran over {DIST_TIMEOUT}s"
+            else:
+                time.sleep(0.2)
+        bad = [i for i, p in enumerate(procs) if p.returncode != 0]
+        if failed is None and bad:
+            failed = f"process {bad[0]} exited with {procs[bad[0]].returncode}"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    outs = []
+    for p in procs:
+        p.out.seek(0)
+        outs.append(p.out.read().decode(errors="replace"))
+        p.out.close()
+    if failed:
+        tails = "\n".join(f"--- process {i} (rc {p.returncode}):\n"
+                          f"{outs[i][-2500:]}" for i, p in enumerate(procs))
+        raise RuntimeError(f"{what}: {failed}\n{tails}")
+    return outs
+
+
+def phase_dist_world1(smi, det, loader, device="cuda", backend="nccl"):
+    """The train phase's Runner for DIST_STEPS steps twice from the same
+    weights, batches and generator: without a process group, then at world
+    size 1 through ``vps_torch.train.dist.init_dist`` over ``backend``
+    (NCCL on the card: the broadcast, the gradients' and log vars'
+    all-reduces, rank 0's checkpoint). An all-reduce over one rank is a
+    copy and the division by 1 exact: the parameters and the logged terms
+    must be equal bit for bit. Returns the launch counts of the NCCL run."""
+    import torch
+    from vps_torch.train import dist
+    from vps_torch.train.runner import Runner
+
+    on_card = torch.device(device).type == "cuda"
+    w0 = {k: v.detach().clone() for k, v in det.state_dict().items()}
+    steps = copy.copy(loader)
+    steps.steps = DIST_STEPS
+    runs = {}
+    for label in ("plain", backend):
+        det.load_state_dict(w0)
+        if label != "plain":
+            dist.init_dist(backend, f"localhost:{_free_port()}", 1, 0)
+        try:
+            with tempfile.TemporaryDirectory(dir=WORK_DIR) as work:
+                runner = Runner(det, steps, {}, work, total_epochs=1,
+                                log_interval=1, ckpt_interval=1, seed=SEED)
+                _reset_counts()
+                state = runner.run()
+                _sync(device)
+                launches = _counts()
+                ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pth"))
+            world = dist.get_world_size()
+        finally:
+            dist.destroy_dist()
+        runs[label] = dict(
+            params={n: p.detach().clone() for n, p in det.named_parameters()},
+            hist=runner.log_history, launches=launches, ckpts=ckpts,
+            applied=state.optimizer.count, world=world)
+    det.load_state_dict(w0)
+    a, b = runs["plain"], runs[backend]
+    differ = [n for n in a["params"] if not torch.equal(a["params"][n],
+                                                         b["params"][n])]
+    terms = [(i, k) for i, (x, y) in enumerate(zip(a["hist"], b["hist"]))
+             for k in x if k != "time" and x[k] != y.get(k)]
+    print(f"dist world 1: the train phase's Runner, {DIST_STEPS} steps from "
+          f"the same weights, batches and generator, without a process group "
+          f"and at world size {b['world']} over {backend} (broadcast, "
+          f"all-reduced gradients and log vars, rank-0 checkpoint): "
+          f"parameters {len(a['params']) - len(differ)} of "
+          f"{len(a['params'])} bitwise equal, logged terms "
+          f"{'all' if not terms else 'not all'} equal; s/step of step "
+          f"{DIST_STEPS} {a['hist'][-1]['time']:.4f} without, "
+          f"{b['hist'][-1]['time']:.4f} over {backend} (first steps "
+          f"{a['hist'][0]['time']:.3f}, {b['hist'][0]['time']:.3f}); "
+          f"checkpoints {a['ckpts']}, {b['ckpts']}; launches {b['launches']}; "
+          f"card: {smi}")
+    if differ or terms:
+        raise AssertionError(f"dist world 1: differs from the plain Runner in "
+                             f"{differ[:5]} {terms[:5]}")
+    if b["world"] != 1 or a["applied"] != DIST_STEPS \
+            or b["applied"] != DIST_STEPS:
+        raise AssertionError(f"dist world 1: world {b['world']}, steps "
+                             f"applied {a['applied']}, {b['applied']}")
+    want_ckpt = [f"ckpt_{DIST_STEPS}.pth"]
+    if a["ckpts"] != want_ckpt or b["ckpts"] != want_ckpt:
+        raise AssertionError(f"dist world 1: checkpoints {a['ckpts']}, "
+                             f"{b['ckpts']}")
+    want = _want(corr_f32=2 * DIST_STEPS, corr_backward=DIST_STEPS)
+    if on_card and (a["launches"] != want or b["launches"] != want):
+        raise AssertionError(f"dist world 1: kernel launches {a['launches']}, "
+                             f"{b['launches']}, want {want}")
+    return b["launches"]
+
+
+def _dist_det(device, h, w, depth):
+    """The train phase's detector (R-``depth`` FuseTrack, f32,
+    fusetrack_train_cfg, seeded weights)."""
+    from vps_torch import zoo
+    from vps_torch.models.detectors import PanopticFuseTrack, random_init_
+
+    cfg = zoo.f32_compute_overrides(zoo.fusetrack_model_cfg(depth))
+    cfg.pop("type")
+    return random_init_(PanopticFuseTrack(
+        train_cfg=zoo.fusetrack_train_cfg(), test_cfg=zoo.fusetrack_test_cfg(),
+        device=device, **cfg), seed=SEED)
+
+
+def _dist_batch(indices, device, h, w):
+    """The global batch's samples ``indices`` (sample i: synth_sample's seed
+    SEED + 4 + i) as one batch on ``device``."""
+    import torch
+    from vps_torch.train.step import IMAGE_KEYS
+
+    samples = [synth_sample(np.random.RandomState(SEED + 4 + i), h, w, MAX_GT)
+               for i in indices]
+    return {k: torch.as_tensor(np.concatenate([s[k] for s in samples])
+                               if k in IMAGE_KEYS
+                               else np.stack([s[k] for s in samples]),
+                               device=device) for k in samples[0]}
+
+
+def _dist_one_step(det, batch, device):
+    """One ``make_train_step`` step of ``det`` on ``batch`` under
+    train_policy (constant lr DIST_LR, the step generator seeded SEED).
+    Returns (log vars, the gradients the optimizer got, the step's seconds,
+    the all-reduce's seconds): host clock, each ending in a synchronize."""
+    import torch
+    from vps_torch.train import dist
+    from vps_torch.train.optim import build_optimizer
+    from vps_torch.train.step import TrainState, make_train_step
+    from vps_torch.utils.numerics import train_policy
+
+    opt = build_optimizer(det, lambda step: np.float32(DIST_LR))[0]
+    grads, reduce_s = {}, []
+    real_step, real_reduce = opt.step, dist.all_reduce_grads
+
+    def step():
+        grads.update({n: p.grad.detach().clone() if p.grad is not None
+                      else torch.zeros_like(p)
+                      for n, p in zip(opt.names, opt.params)})
+        return real_step()
+
+    def reduce(params):
+        _sync(device)
+        t = time.perf_counter()
+        real_reduce(params)
+        _sync(device)
+        reduce_s.append(time.perf_counter() - t)
+
+    opt.step = step
+    dist.all_reduce_grads = reduce
+    try:
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        with train_policy():
+            _sync(device)
+            t = time.perf_counter()
+            _, log_vars = make_train_step(det, opt)(TrainState(opt, 0), batch,
+                                                    gen)
+            _sync(device)
+            step_s = time.perf_counter() - t
+    finally:
+        dist.all_reduce_grads = real_reduce
+    if opt.count != 1:
+        raise AssertionError(f"dist step: {opt.total_notfinite} steps skipped")
+    return ({k: float(v) for k, v in log_vars.items()}, grads, step_s,
+            sum(reduce_s))
+
+
+def _digest(module):
+    """A SHA-256 of every parameter's bytes."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for _, p in module.named_parameters():
+        digest.update(p.detach().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _dist_step_rank(rank, world, port, out, device, h, w, depth, threads):
+    """One rank of "dist step" (its own process): join the gloo group,
+    build the detector (rank 0's weights reach the others by the
+    broadcast), one step on the global batch's sample ``rank``, then one
+    more for its warm time; writes ``out/rank<rank>.json`` (log vars,
+    launches and a digest of every parameter after the first step; peak
+    memory, seconds, the digest after the second) and, rank 0,
+    ``out/rank0.pt`` (the first step's gradients the optimizer got and the
+    parameters after it). ``threads``:
+    the parent's intra-op threads (on the CPU the sums of a conv depend on
+    their number)."""
+    import torch
+    from vps_torch.train import dist
+    from vps_torch.utils.numerics import deterministic_cublas, f32_policy
+
+    torch.set_num_threads(threads)
+    f32_policy()
+    deterministic_cublas()
+    dist.init_dist("gloo", f"localhost:{port}", world, rank)
+    try:
+        dev = dist.rank_device(device, rank)
+        on_card = dev.type == "cuda"
+        if on_card:
+            torch.cuda.set_device(dev)
+        det = _dist_det(dev, h, w, depth)
+        dist.broadcast_module(det)
+        batch = _dist_batch([rank], dev, h, w)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        log_vars, grads, step_s, reduce_s = _dist_one_step(det, batch, dev)
+        launches = _counts()
+        rec = dict(log_vars=log_vars, launches=launches, step_s=step_s,
+                   reduce_s=reduce_s, digest=_digest(det),
+                   reduced_mb=sum(g.numel() * g.element_size()
+                                  for g in grads.values()) / 2**20)
+        if rank == 0:
+            torch.save({"grads": {n: g.cpu() for n, g in grads.items()},
+                        "params": {n: p.detach().cpu()
+                                   for n, p in det.named_parameters()}},
+                       os.path.join(out, "rank0.pt"))
+        del grads
+        # one more step, warm and started together (rank 0 saved its file
+        # meanwhile), for its time and the all-reduce's share
+        torch.distributed.barrier()
+        _, _, rec["warm_s"], rec["warm_reduce_s"] = _dist_one_step(det, batch,
+                                                                   dev)
+        rec["warm_digest"] = _digest(det)
+        rec["peak"] = torch.cuda.max_memory_allocated() if on_card else 0
+        with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_dist()
+    return 0
+
+
+def phase_dist_step(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50):
+    """One train step at full width on a global batch of 2 (the train
+    phase's detector; samples synth_sample seeds SEED + 4 and SEED + 5):
+    first in this process on the batch of 2, then on 2 ranks of their own
+    processes, both on ``device`` (cuda: card 0, which NCCL refuses to
+    share, so over gloo), one sample each. Fails unless the loss terms
+    (averaged over the ranks), the all-reduced gradients and the
+    parameters after the step agree with the one process's within
+    DIST_TERM_TOL, DIST_GRAD_TOL and DIST_PARAM_TOL, and the two ranks'
+    parameters, gradients and terms are equal bit for bit. Returns the
+    launch counts, summed over the ranks."""
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    det = _dist_det(device, h, w, depth)
+    batch = _dist_batch([0, 1], device, h, w)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    want_logs, want_grads, one_s, _ = _dist_one_step(det, batch, device)
+    want_grads = {n: g.cpu() for n, g in want_grads.items()}
+    want_params = {n: p.detach().cpu().clone()
+                   for n, p in det.named_parameters()}
+    one_peak = torch.cuda.max_memory_allocated() if on_card else 0
+    del det, batch
+    if on_card:
+        torch.cuda.empty_cache()
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as out:
+        port = _free_port()
+        # both ranks on card 0 (the machine has one card), or the CPU
+        rank_dev = "cuda:0" if on_card else "cpu"
+        code = ("import sys, chip_smoke; sys.exit(chip_smoke._dist_step_rank("
+                f"{{r}}, 2, {port}, {out!r}, {rank_dev!r}, {h}, {w}, {depth}, "
+                f"{torch.get_num_threads()}))")
+        t0 = time.perf_counter()
+        _finish([_start([sys.executable, "-c", code.format(r=r)])
+                 for r in range(2)], "dist step")
+        ranks_s = time.perf_counter() - t0
+        recs = []
+        for r in range(2):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+        got = torch.load(os.path.join(out, "rank0.pt"))
+    term_err = max(abs(recs[0]["log_vars"][k] - v) / max(abs(v), 1e-6)
+                   for k, v in want_logs.items())
+    gmax = max(g.abs().max().item() for g in want_grads.values())
+    grad_err = max((got["grads"][n] - g).abs().max().item()
+                   / (DIST_GRAD_TOL[0] * g.abs().max().item()
+                      + DIST_GRAD_TOL[1] * gmax)
+                   for n, g in want_grads.items())
+    param_err = max((got["params"][n] - p).abs().max().item()
+                    / max(p.abs().max().item(), 1e-30)
+                    for n, p in want_params.items())
+    rel_grad = max((got["grads"][n] - g).abs().max().item()
+                   / max(g.abs().max().item(), 1e-30)
+                   for n, g in want_grads.items())
+    same = (recs[0]["digest"] == recs[1]["digest"]
+            and recs[0]["warm_digest"] == recs[1]["warm_digest"])
+    for r, rec in enumerate(recs):
+        print(f"dist step: rank {r} of 2 on {device} (gloo): one step of 1 "
+              f"sample {h}x{w} in {rec['step_s']:.4f}s cold, "
+              f"{rec['warm_s']:.4f}s warm; the gradients' all-reduce "
+              f"({rec['reduced_mb']:.0f} MiB) {rec['reduce_s']:.4f}s cold, "
+              f"{rec['warm_reduce_s']:.4f}s warm "
+              f"({rec['warm_reduce_s'] / rec['warm_s']:.3f} of the warm "
+              f"step); peak mem {rec['peak'] / 2**30:.2f} GiB, launches of "
+              f"the first step {rec['launches']}; card: {smi}")
+    print(f"dist step: R-{depth} f32 {h}x{w}, global batch 2: in one process "
+          f"{one_s:.4f}s, peak mem "
+          f"{one_peak / 2**30:.2f} GiB; 2 ranks "
+          f"{ranks_s:.1f}s wall with their start; largest differences: loss "
+          f"terms {term_err:.3g} relative (bar {DIST_TERM_TOL}), gradients "
+          f"{rel_grad:.3g} of the tensor's largest ({grad_err:.3g} of the "
+          f"bar {DIST_GRAD_TOL}), parameters {param_err:.3g} of the tensor's "
+          f"largest (bar {DIST_PARAM_TOL}); the two ranks' parameters "
+          f"after each step {'bitwise equal' if same else 'differ'}, loss "
+          f"{want_logs['loss']:.4f}")
+    if not same or recs[0]["log_vars"] != recs[1]["log_vars"]:
+        raise AssertionError("dist step: the two ranks differ")
+    if set(recs[0]["log_vars"]) != set(want_logs) or set(got["grads"]) \
+            != set(want_grads):
+        raise AssertionError("dist step: other terms or parameters")
+    if term_err > DIST_TERM_TOL or grad_err > 1.0 \
+            or param_err > DIST_PARAM_TOL:
+        raise AssertionError("dist step: the ranks and the one process differ")
+    launches = {k: sum(rec["launches"][k] for rec in recs) for k in KERNELS}
+    want = _want(corr_f32=4, corr_backward=2)
+    if on_card and launches != want:
+        raise AssertionError(f"dist step: kernel launches {launches} != {want}")
+    return launches
+
+
+def phase_dist_train(smi, fx, device="cuda"):
+    """The train tool on 2 ranks through ``vps_torch/tools/dist_train.sh``
+    (NPROC=2; on the card both on card 0 over gloo), on the dataset phase's
+    fixture and config: 2 epochs of 1 step (one train video of 2 frames,
+    one sample a rank), the validation hook after each over the val videos
+    (video v on rank v % 2; merged on rank 0), rank 0's checkpoint. Fails
+    unless both ranks exit 0, the work dir holds one checkpoint, the log
+    says hosts=2 and holds each epoch's step and eval once (rank 1 logs
+    nothing below ERROR), and each epoch's merge holds every val frame
+    once. Returns the launch counts, summed over the ranks."""
+    import torch
+
+    on_card = torch.device(device).type == "cuda"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = os.path.join(fx["tmp"], "dist_train")
+    os.makedirs(tmp)
+    cfg_path = os.path.join(tmp, "cfg.py")
+    with open(cfg_path, "w") as f:
+        f.write(DIST_TRAIN_CONFIG.format(base=fx["cfg"], val_ann=fx["val_ann"],
+                                         val_img=fx["val_img"],
+                                         frames=fx["val_frames"]))
+        if fx["tiny"]:
+            f.write(f'data["val"]["pipeline"] = dict(img_scale=({fx["w"]}, '
+                    f'{fx["h"]}))\n')
+    work, counts = os.path.join(tmp, "work"), os.path.join(tmp, "counts")
+    env = dict(os.environ, NPROC="2", PORT=str(_free_port()),
+               PYTHON=sys.executable)
+    cmd = ["bash", os.path.join(repo, "vps_torch", "tools", "dist_train.sh"),
+           cfg_path, "--work_dir", work, "--launch-counts", counts]
+    cmd += (["--device", "cuda:0", "--dist-backend", "gloo"] if on_card
+            else ["--device", "cpu"])
+    if on_card:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _finish([_start(cmd, env)], "dist train")
+    wall = time.perf_counter() - t0
+
+    epochs = 2
+    n_val = fx["val_videos"] * fx["val_frames"]
+    ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pth"))
+    with open(os.path.join(work, "train.log")) as f:
+        log = f.read()
+    steps = [float(m) for m in re.findall(r"Epoch \[\d+\]\[1\] time: ([0-9.]+)s",
+                                          log)]
+    evals = re.findall(r"Eval \[\d+\] .*eval_frames: ([0-9.]+)", log)
+    parts = {}
+    for e in range(1, epochs + 1):
+        for r in range(2):
+            with open(os.path.join(work, ".eval_hook",
+                                   f"epoch{e}.host{r}.pkl"), "rb") as f:
+                parts[e, r] = set(pickle.load(f))
+    launches = []
+    for r in range(2):
+        with open(os.path.join(counts, f"launches.rank{r}.json")) as f:
+            launches.append(json.load(f))
+    print(f"dist train: vps_torch/tools/dist_train.sh NPROC=2 on "
+          f"{'card 0 (gloo)' if on_card else 'the cpu (gloo)'}, "
+          f"{'tiny' if fx['tiny'] else 'R-50'} f32 {fx['h']}x{fx['w']}, "
+          f"{epochs} epochs of 1 step (batch 1 a rank), the eval hook over "
+          f"{n_val} val frames each epoch: {wall:.1f}s wall with the ranks' "
+          f"start; s/step {', '.join(f'{t:.4f}' for t in steps)} (rank 0's "
+          f"log; every rank steps in lockstep); checkpoints {ckpts}; merged "
+          f"evals of {evals} frames, per rank "
+          f"{[len(parts[1, r]) for r in range(2)]}; launches by rank "
+          f"{launches}; card: {smi}")
+    if ckpts != [f"ckpt_{epochs}.pth"]:
+        raise AssertionError(f"dist train: checkpoints {ckpts}")
+    if log.count("devices=2 hosts=2 batch/host=1 steps/epoch=1") != 1:
+        raise AssertionError("dist train: the log's set-up line is not there "
+                             "once with hosts=2")
+    if len(steps) != epochs or len(evals) != epochs \
+            or any(float(n) != n_val for n in evals):
+        raise AssertionError(f"dist train: logged steps {steps}, evals {evals}"
+                             f" (rank 1 must log nothing below ERROR)")
+    for e in range(1, epochs + 1):
+        a, b = parts[e, 0], parts[e, 1]
+        if a & b or len(a | b) != n_val:
+            raise AssertionError(f"dist train: epoch {e}'s merge holds "
+                                 f"{len(a)} + {len(b)} frames, "
+                                 f"{len(a & b)} twice")
+    # per rank: 2 steps (2 correlations and 1 backward each) and its val
+    # video, 2 f32 correlations a frame, each epoch
+    per_rank = _want(corr_f32=2 * epochs + 2 * epochs * fx["val_frames"],
+                     corr_backward=epochs)
+    if on_card and any(c != per_rank for c in launches):
+        raise AssertionError(f"dist train: kernel launches {launches}, want "
+                             f"{per_rank} a rank")
+    return {"dist train": {k: sum(c.get(k, 0) for c in launches)
+                           for k in KERNELS}}
+
+
+def phase_native(smi):
+    """The native host library (``vps_torch.native``, built with g++ here)
+    against its numpy versions on seeded masks and boxes: the RLE codec on
+    a 1024x2048 mask and edge cases, greedy NMS and Soft-NMS (hard,
+    linear, gaussian) over 1000 boxes, the IoU matrix of 1000 x 1000; host
+    ms of each beside its numpy version's. Fails on any difference (the
+    gaussian Soft-NMS's scores: within 1e-6, numpy's exp and libm's differ
+    by an ulp). The detection evaluation's IoU and the COCO masks' RLE go
+    through the library (``eval.mean_ap``, ``data.coco``)."""
+    from vps_torch import native
+    from vps_torch.data import coco
+    from vps_torch.eval import mean_ap
+
+    t0 = time.perf_counter()
+    native.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.RandomState(SEED + 9)
+
+    def ms(fn, *args, reps=3):
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn(*args)
+        return out, (time.perf_counter() - t) / reps * 1e3
+
+    pairs = {}  # name: (native ms, numpy ms)
+
+    def both(name, fn, fn_np, *args, reps=3):
+        out, t = ms(fn, *args, reps=reps)
+        out_np, t_np = ms(fn_np, *args, reps=reps)
+        pairs[name] = (t, t_np)
+        return out, out_np
+
+    masks = [np.zeros((5, 7), np.uint8), np.ones((5, 7), np.uint8),
+             np.eye(1, 35, 0, np.uint8).reshape(5, 7), np.ones((1, 1), np.uint8)]
+    ys, xs = np.mgrid[0:1024, 0:2048]
+    big = ((((xs - 900) / 300.0) ** 2 + ((ys - 500) / 200.0) ** 2 <= 1)
+           | (rng.rand(1024, 2048) > 0.999)).astype(np.uint8)
+    for m in masks + [big]:  # the last one's times are kept
+        s, s_np = both("rle_encode", native.rle_encode, native.rle_encode_np, m)
+        d, d_np = both("rle_decode", native.rle_decode, native.rle_decode_np,
+                       s, *m.shape)
+        if s != s_np or not (np.array_equal(d, m) and np.array_equal(d_np, m)):
+            raise AssertionError(f"native: RLE of a {m.shape} mask differs")
+    c = rng.rand(1000, 2) * [2048, 1024]
+    wh = 8 + rng.rand(1000, 2) * 200
+    dets = np.concatenate([c - wh / 2, c + wh / 2,
+                           rng.randint(1, 50, (1000, 1)) / 50.0],
+                          1).astype(np.float32)
+    ious, ious_np = both("bbox_overlaps", native.bbox_overlaps,
+                         native.bbox_overlaps_np, dets, dets)
+    keep, keep_np = both("cpu_nms", native.cpu_nms, native.cpu_nms_np, dets,
+                         0.5)
+    if not np.array_equal(ious, ious_np) or not np.array_equal(keep, keep_np):
+        raise AssertionError("native: IoU or NMS differs from numpy")
+    soft_err = 0.0
+    for method in ("hard", "linear", "gaussian"):
+        (r, k), (r_np, k_np) = both(
+            f"soft_nms {method}", native.cpu_soft_nms, native.cpu_soft_nms_np,
+            dets, 0.3, 0.5, 1e-3, method, reps=1)
+        err = float(np.abs(r - r_np).max()) if len(r) else 0.0
+        soft_err = max(soft_err, err)
+        if not np.array_equal(k, k_np) or err > (1e-6 if method == "gaussian"
+                                                 else 0.0):
+            raise AssertionError(f"native: soft-NMS {method} differs by {err}")
+    if mean_ap.bbox_overlaps is not native.bbox_overlaps \
+            or coco.rle_decode is not native.rle_decode:
+        raise AssertionError("native: the evaluation does not call the library")
+    print(f"native: g++ build and load {build_s:.2f}s; equal to numpy (the "
+          f"gaussian soft-NMS's scores within {soft_err:.3g}); kept "
+          f"{len(keep)} of 1000 by NMS; host ms, native / numpy: "
+          + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in pairs.items())
+          + f" (RLE: a 1024x2048 mask); host of: {smi}")
+
+
 def _timed(name, fn, *args, **kw):
     """fn(*args, **kw), then a line of its wall seconds."""
     t0 = time.perf_counter()
@@ -5086,14 +5673,20 @@ def main() -> int:
         _timed("kernels correlation backward",
                phase_kernels_correlation_backward),
         _timed("kernels windowed", phase_kernels_windowed)]
+    later = {}
     paths = {"main": _timed("main", phase_main, smi),
              "window": _timed("window", phase_main, smi, dcn_window=WINDOW),
-             "train": _timed("train", phase_train, smi),
+             "train": _timed("train", phase_train, smi, then=lambda det, ld:
+                             later.update({"dist world 1": _timed(
+                                 "dist world 1", phase_dist_world1, smi, det,
+                                 ld)})),
              "fuse": _timed("fuse", phase_detector, smi, "PanopticFuse"),
              "track": _timed("track", phase_detector, smi, "PanopticTrack"),
              "aug": _timed("aug", phase_aug, smi),
              "ohem train": _timed("ohem train", phase_train, smi,
-                                  steps=OHEM_STEPS, sampler=OHEM)}
+                                  steps=OHEM_STEPS, sampler=OHEM),
+             "dist step": _timed("dist step", phase_dist_step, smi)}
+    paths.update(later)
     _timed("small", phase_small)
     _timed("small window", phase_small, dcn_window=WINDOW)
     _timed("small fuse", phase_small, kind="PanopticFuse")
@@ -5128,9 +5721,13 @@ def main() -> int:
     paths.update(_timed("ga train", phase_ga_train, smi))
     _timed("small ga train", phase_small_ga_train)
     paths.update(_timed(
-        "dataset (robustness and detection eval included)", phase_dataset,
+        "dataset (robustness, detection eval and dist train included)",
+        phase_dataset,
         smi, numerics, then=(lambda fx: phase_robustness(smi, fx),
-                             lambda fx: phase_detection_eval(smi, fx))))
+                             lambda fx: phase_detection_eval(smi, fx),
+                             lambda fx: _timed("dist train", phase_dist_train,
+                                               smi, fx))))
+    _timed("native", phase_native, smi)
     paths.update(_timed("viper", phase_viper, smi))
     # launches: the run of the kernel's own path; by path: every path's run
     own = {"corr_bf16_tc": "main", "corr_f32": "train",

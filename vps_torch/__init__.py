@@ -1,13 +1,15 @@
 """PyTorch + CUDA port of vps_tpu's FuseTrack, video inference and
-training, for one NVIDIA H100.
+training, for the NVIDIA H100: one card, or data-parallel training over
+several processes (``train/dist.py``).
 
 Layout mirrors ``vps_tpu`` (``ops/``, ``models/``, ``models/flow/``,
 ``models/detectors/``, ``core/``, ``train/``, ``utils/``, ``data/``,
 ``eval/``) so every module has a counterpart under the same name; the
 entry points are ``tools/`` (train, test_vpq, eval_vpq, eval_ipq and the
 detection evaluation's tools), the configs
-``configs/``, and hand-written Hopper kernels live in ``csrc/``. The
-package imports torch, numpy, cv2, PIL and the standard library only.
+``configs/``, hand-written Hopper kernels live in ``csrc/`` and the host
+library's C++ in ``native/``. The package imports torch, numpy, cv2, PIL
+and the standard library only.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
-"""Minimal COCO-json index (image/annotation lookup) and annotation masks,
-with the numpy decoder of COCO's compressed RLE (the port's copy of the JAX
-package's ``data/coco.py`` and of its numpy RLE fallback; the C++ host
-library is not ported)."""
+"""Minimal COCO-json index (image/annotation lookup) and annotation masks
+(the port's copy of the JAX package's ``data/coco.py``); COCO's compressed
+RLE is decoded by the native host library, ``vps_torch.native``."""
 
 from __future__ import annotations
 
@@ -10,6 +9,8 @@ from collections import defaultdict
 from typing import Any, Dict, List
 
 import numpy as np
+
+from vps_torch.native import rle_decode
 
 try:
     import cv2
@@ -35,45 +36,6 @@ class CocoIndex:
 
     def load_anns(self, img_id: int) -> List[Dict[str, Any]]:
         return self.img_to_anns.get(img_id, [])
-
-
-def _runs_to_mask(cnts, h: int, w: int) -> np.ndarray:
-    flat = np.zeros(h * w, np.uint8)
-    pos = 0
-    v = 0
-    for n in cnts:
-        flat[pos : pos + int(n)] = v
-        pos += int(n)
-        v = 1 - v
-    return flat.reshape(w, h).T  # column-major
-
-
-def rle_decode(counts, h: int, w: int) -> np.ndarray:
-    """Decode a compressed RLE string (COCO wire format: column-major runs,
-    6-bit chars, delta coding) or an uncompressed counts list into an
-    (h, w) uint8 mask."""
-    if isinstance(counts, (list, tuple)):  # uncompressed RLE
-        return _runs_to_mask(counts, h, w)
-    if isinstance(counts, bytes):
-        counts = counts.decode("ascii")
-    cnts = []
-    p = 0
-    while p < len(counts):
-        x = 0
-        k = 0
-        more = True
-        while more:
-            c = ord(counts[p]) - 48
-            x |= (c & 0x1F) << (5 * k)
-            more = bool(c & 0x20)
-            p += 1
-            k += 1
-            if not more and (c & 0x10):
-                x |= -1 << (5 * k)
-        if len(cnts) > 2:
-            x += cnts[-2]
-        cnts.append(x)
-    return _runs_to_mask(cnts, h, w)
 
 
 def ann_to_mask(segm, h: int, w: int) -> np.ndarray:

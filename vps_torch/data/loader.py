@@ -1,10 +1,18 @@
-"""Train loader (the port's copy of the JAX package's ``data/loader.py``,
-one host): a deterministic per-epoch permutation (seed = base_seed + epoch,
-mmdet's DistSamplerSeedHook), each sample drawn with a ``RandomState`` of
-its own seed, loaded and augmented in ``num_workers`` OS processes, and
-yielded as batch dicts of numpy arrays with a leading dim of
-``batch_size``. Every sample is the same shape (the static crop), so no
-aspect-ratio grouping.
+"""Train loader (the port's copy of the JAX package's ``data/loader.py``):
+a deterministic per-epoch permutation (seed = base_seed + epoch, mmdet's
+DistSamplerSeedHook), of which host (rank) ``host_id`` of ``num_hosts``
+takes every ``num_hosts``-th index from its own, each sample drawn with a
+``RandomState`` of its own seed, loaded and augmented in ``num_workers`` OS
+processes, and yielded as batch dicts of numpy arrays with a leading dim of
+``batch_size`` (the batch of one host). Every sample is the same shape (the
+static crop), so no aspect-ratio grouping.
+
+Every host yields exactly ``steps_per_epoch()`` batches, n * repeat //
+(batch * hosts): each step is a collective across the hosts, so one host
+with a step more would wait for the others forever. The JAX loader yields
+len(order[host::hosts]) // batch, which is one more on the first hosts when
+n is not a multiple of the host count; where it is, the batches are the
+JAX loader's.
 
 Workers are processes, as decoding, RLE and augmentation are numpy/cv2 work
 that holds the GIL. They are spawned, not forked: a trainer has usually
@@ -53,6 +61,8 @@ class TrainLoader:
         dataset,
         batch_size: int,
         seed: int = 0,
+        num_hosts: int = 1,
+        host_id: int = 0,
         repeat_times: int = 1,
         num_workers: int = 2,
         max_retries: int = 20,
@@ -61,6 +71,10 @@ class TrainLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        if not 0 <= host_id < num_hosts:
+            raise ValueError(f"host_id {host_id} of {num_hosts} hosts")
+        self.num_hosts = num_hosts
+        self.host_id = host_id
         self.repeat_times = getattr(dataset, "repeat_times", None) or repeat_times
         self.num_workers = num_workers
         self.max_retries = max_retries
@@ -71,7 +85,7 @@ class TrainLoader:
 
     def steps_per_epoch(self) -> int:
         n = len(self.dataset) * self.repeat_times
-        return n // self.batch_size
+        return n // (self.batch_size * self.num_hosts)
 
     # ------------------------------------------------------------------
     # worker pool lifecycle (lazy; survives across epochs)
@@ -134,10 +148,11 @@ class TrainLoader:
         order = np.concatenate(
             [rng.permutation(n) for _ in range(self.repeat_times)]
         )
-        steps = len(order) // self.batch_size
-        # the JAX loader's per-sample seeds, at host 0
-        seeds = [(self.seed + epoch) * 100003 + i for i in range(len(order))]
-        return order, seeds, steps, n
+        order = order[self.host_id::self.num_hosts]
+        # the JAX loader's per-sample seeds
+        seeds = [(self.seed + epoch) * 100003 + self.host_id * 1009 + i
+                 for i in range(len(order))]
+        return order, seeds, self.steps_per_epoch(), n
 
     def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
         order, seeds, steps, n = self._plan_epoch(epoch)

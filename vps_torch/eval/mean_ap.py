@@ -2,8 +2,10 @@
 ``eval/mean_ap.py``, mmdet's ``core/evaluation`` mean_ap and recall):
 VOC-style AP with 'area' or '11points' interpolation, per-class tp/fp
 marking at an IoU threshold with difficult/ignore handling, and proposal
-recall curves. Host numpy, as in the JAX package: the same float32 casts,
-stable sorts and float32 eps, so the numbers are the same bit for bit.
+recall curves. Host numpy, as in the JAX package, and its IoU matrix from
+the native host library (``vps_torch.native.bbox_overlaps``), as the JAX
+package's: the same float32 casts, stable sorts and float32 eps, so the
+numbers are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -12,22 +14,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-
-def bbox_overlaps(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """The legacy "+1" IoU matrix (a box from x1 to x2 covers x2 - x1 + 1
-    pixels), (len(a), len(b)) float32: the numpy form of the JAX package's
-    native ``bbox_overlaps``, which computes the same float32 operations in
-    the same order."""
-    a = np.ascontiguousarray(a[:, :4], np.float32)
-    b = np.ascontiguousarray(b[:, :4], np.float32)
-    lt = np.maximum(a[:, None, :2], b[None, :, :2])
-    rb = np.minimum(a[:, None, 2:], b[None, :, 2:])
-    wh = np.clip(rb - lt + 1, 0, None)
-    inter = wh[..., 0] * wh[..., 1]
-    aa = (a[:, 2] - a[:, 0] + 1) * (a[:, 3] - a[:, 1] + 1)
-    ab = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
-    return (inter / np.maximum(aa[:, None] + ab[None, :] - inter, 1e-9)).astype(
-        np.float32)
+from vps_torch.native import bbox_overlaps
 
 
 def average_precision(recalls: np.ndarray, precisions: np.ndarray,

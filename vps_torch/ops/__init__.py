@@ -22,6 +22,17 @@ from vps_torch.ops.roi_align import multilevel_roi_align
 from vps_torch.ops.roi_pool import deform_roi_pool, roi_pool
 from vps_torch.ops.warp import channel_norm, flow_warp, resample2d
 
+
+def launch_counts():
+    """The hand-written kernels' launch counts in this process, by kernel:
+    the correlation's routes (``corr_bf16_tc``, ``corr_f32``),
+    ``corr_backward`` and ``dcw_fused``. Each wrapper counts where it
+    launches its kernel and nowhere else."""
+    return dict(correlation.route_launches,
+                corr_backward=correlation_backward.launches,
+                dcw_fused=deform_conv2d_windowed.launches)
+
+
 __all__ = [
     "channel_norm",
     "correlation",
@@ -35,6 +46,7 @@ __all__ = [
     "deform_conv2d_windowed_reference",
     "deform_roi_pool",
     "flow_warp",
+    "launch_counts",
     "multilevel_roi_align",
     "nms",
     "resample2d",

@@ -4,9 +4,16 @@ post-epoch ``eval_fn`` hook, over any loader with ``epoch(e)`` (an iterable
 of batches: dicts of arrays with a leading batch dim) and
 ``steps_per_epoch()``.
 
+Across processes (``vps_torch.train.dist``) every rank runs the Runner on
+its own shard: the weights are broadcast from rank 0 after init,
+``load_from`` and ``resume_from``, only rank 0 saves checkpoints and logs,
+and ``eval_fn`` runs on every rank (the hook shards the videos and merges
+on rank 0), as the JAX Runner does.
+
 ``run`` trains under ``vps_torch.utils.numerics.train_policy``: a step
 repeats bit for bit from the same weights, optimizer state and generator,
-as the JAX trainer's does.
+as the JAX trainer's does. ``eval_fn`` runs under ``inference_policy``, as
+the test tool's inference does.
 """
 
 from __future__ import annotations
@@ -19,10 +26,11 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
+from vps_torch.train import dist
 from vps_torch.train.optim import build_lr_schedule, build_optimizer
 from vps_torch.train.step import TrainState, make_train_step
 from vps_torch.utils.checkpoint import load_checkpoint, save_checkpoint
-from vps_torch.utils.numerics import train_policy
+from vps_torch.utils.numerics import inference_policy, train_policy
 
 
 def _to_device(batch, device):
@@ -73,6 +81,7 @@ class Runner:
     def run(self, load_from: Optional[str] = None,
             resume_from: Optional[str] = None) -> TrainState:
         det = self.detector
+        rank, world = dist.get_rank(), dist.get_world_size()
         state = self.init_state()
         opt = state.optimizer
         start_epoch = 0
@@ -91,40 +100,51 @@ class Runner:
             restored = load_checkpoint(load_from,
                                        {"state_dict": det.state_dict()})
             det.load_state_dict(restored["state_dict"])
+        dist.broadcast_module(det)  # every rank starts from rank 0's weights
 
-        with train_policy():
-            step_fn = make_train_step(det, opt)
-            gen = torch.Generator(device=det.device).manual_seed(
-                self.seed + 12345)
-            for epoch in range(start_epoch, self.total_epochs):
+        step_fn = make_train_step(det, opt)
+        gen = torch.Generator(device=det.device).manual_seed(self.seed + 12345)
+        for epoch in range(start_epoch, self.total_epochs):
+            with train_policy():
+                state = self._train_epoch(epoch, state, step_fn, gen,
+                                          rank, world)
+            if rank == 0 and ((epoch + 1) % self.ckpt_interval == 0
+                              or epoch + 1 == self.total_epochs):
+                save_checkpoint(self.work_dir, state.step, det.state_dict(),
+                                opt.state_dict(),
+                                meta=dict(epoch=epoch + 1, step=state.step))
+            if (self.eval_fn is not None
+                    and (epoch + 1) % self.eval_interval == 0):
+                # every rank evaluates its shard, under the inference
+                # policy as test_vpq does; ranks other than 0 get {} back
+                # from the hook's gather
+                with inference_policy():
+                    metrics = self.eval_fn(state, epoch + 1)
+                if metrics and rank == 0:
+                    msg = ", ".join(f"{k}: {v:.4f}"
+                                    for k, v in sorted(metrics.items()))
+                    self.logger.info(f"Eval [{epoch + 1}] {msg}")
+        return state
+
+    def _train_epoch(self, epoch, state, step_fn, gen, rank, world):
+        det = self.detector
+        self._sync()
+        t_iter = time.perf_counter()
+        for i, batch in enumerate(self.loader.epoch(epoch)):
+            images = len(batch["img"]) * world  # the global batch
+            state, log_vars = step_fn(state, _to_device(batch, det.device), gen)
+            if (i + 1) % self.log_interval == 0:
+                self._sync()
+                dt = (time.perf_counter() - t_iter) / self.log_interval
+                vals = {k: float(v) for k, v in log_vars.items()}
+                self.log_history.append(dict(
+                    epoch=epoch + 1, iter=i + 1, time=dt, **vals))
+                msg = ", ".join(f"{k}: {v:.4f}" for k, v in sorted(vals.items()))
+                if rank == 0:
+                    self.logger.info(
+                        f"Epoch [{epoch + 1}][{i + 1}] time: {dt:.3f}s "
+                        f"({images / dt:.2f} images/s over {world} rank(s)), "
+                        f"{msg}")
                 self._sync()
                 t_iter = time.perf_counter()
-                for i, batch in enumerate(self.loader.epoch(epoch)):
-                    state, log_vars = step_fn(
-                        state, _to_device(batch, det.device), gen)
-                    if (i + 1) % self.log_interval == 0:
-                        self._sync()
-                        dt = (time.perf_counter() - t_iter) / self.log_interval
-                        vals = {k: float(v) for k, v in log_vars.items()}
-                        self.log_history.append(dict(
-                            epoch=epoch + 1, iter=i + 1, time=dt, **vals))
-                        msg = ", ".join(f"{k}: {v:.4f}"
-                                        for k, v in sorted(vals.items()))
-                        self.logger.info(f"Epoch [{epoch + 1}][{i + 1}] "
-                                         f"time: {dt:.3f}s, {msg}")
-                        self._sync()
-                        t_iter = time.perf_counter()
-                if (epoch + 1) % self.ckpt_interval == 0 \
-                        or epoch + 1 == self.total_epochs:
-                    save_checkpoint(self.work_dir, state.step,
-                                    det.state_dict(), opt.state_dict(),
-                                    meta=dict(epoch=epoch + 1,
-                                              step=state.step))
-                if (self.eval_fn is not None
-                        and (epoch + 1) % self.eval_interval == 0):
-                    metrics = self.eval_fn(state, epoch + 1)
-                    if metrics:
-                        msg = ", ".join(f"{k}: {v:.4f}"
-                                        for k, v in sorted(metrics.items()))
-                        self.logger.info(f"Eval [{epoch + 1}] {msg}")
-            return state
+        return state
