@@ -7,8 +7,9 @@ Phases, each printing its own line of numbers:
                  nvcc per source, all started together; prints the build
                  times and the card (nvidia-smi).
   2. kernels  -- each kernel against its plain PyTorch version on the card,
-                 at the shapes its path gives it (VIPER's frame size among
-                 them) and ragged ones, with the tolerance stated;
+                 at the shapes its path gives it (VIPER's frame size and
+                 the fast presets' FlowNetC among them) and ragged ones,
+                 with the tolerance stated;
                  CUDA-event medians beside the bound. The
                  correlation backward against the plain version's gradients
                  at the training shape and FlowNetC's geometry.
@@ -24,6 +25,12 @@ Phases, each printing its own line of numbers:
                  twice under vps_torch.utils.numerics.inference_policy,
                  whose outputs must be bitwise equal, with the frame rate
                  with and without the policy ("main repeatable").
+     presets  -- exact, lowres-sem, fast and fast-lowres at R-50 over the
+                 first 3 frames of main's clip (1 warm-up + 2 steady), each
+                 a build of its config with main's weights: frames/s beside
+                 main's, peak memory, launches (corr_f32 2 a frame on exact,
+                 corr_bf16_tc 2 a frame on the others), dets and kept, then
+                 one profiled frame (host syncs, busy, the semantic head).
      window   -- the same with `panoptic.dcn_window = 4`: the semantic head's
                  12 deformable convs a frame run the windowed kernel.
      train    -- FuseTrack training at full width: R-50, f32 compute, one
@@ -37,6 +44,15 @@ Phases, each printing its own line of numbers:
                  it, step 1's forward twice, compared point by point (where
                  the two part, the op that is not deterministic); after it,
                  one step split and profiled by vps_torch.profile.
+     bf16 train -- after "train", on its batch and from its weights: the
+                 config's bf16 compute knobs (vps_torch.tools.profile_train's
+                 build_model and Stepper), 3 steps each from one state under
+                 train_policy; s/step beside "train"'s; fails on a
+                 non-finite term, launches other than 2 corr_bf16_tc and 1
+                 corr_backward on its bf16 route a step, two steps that
+                 are not bitwise equal, or a correlation forward or
+                 backward, as the first step launched it, that disagrees
+                 with its plain version on that step's own tensors.
      fuse     -- PanopticFuse (no track head) as "main": 2 correlation
                  launches a frame, object ids the running count of each
                  frame's valid dets, the track state untouched.
@@ -47,12 +63,18 @@ Phases, each printing its own line of numbers:
                  it, the card form of tests/test_aug_test.py:54 (one
                  identity variant against predict).
      ohem train -- "train" with the RCNN sampler OHEM (num 512), 1 warm-up
-                 and 2 timed steps.
+                 and 1 timed step.
   4. small    -- the tiny `exact` model on a 64x128 clip on the card against
                  the same model's plain CPU path: equal detections and keep
                  sets, >= 0.999 semantic/panoptic agreement; the same with
                  `dcn_window = 4`, for PanopticFuse and PanopticTrack, with
-                 the fuse neck's `refine_type='att'`, and for predict_aug
+                 the fuse neck's `refine_type='att'`, at lowres-sem, fast
+                 and fast-lowres with their towers in f32 ("small <preset>
+                 f32") and in bf16 ("small <preset>": the two devices'
+                 convolutions round apart and the tiny model's discrete
+                 outputs flip, so the semantic logits and RPN outputs are
+                 held within 5%, the card taking the CPU's nearest picks,
+                 and the flips are traced), and for predict_aug
                  over 3 variants (identity, flip, half scale); then the
                  tiny model's loss terms and selection-free gradients on
                  the card against the CPU path, same weights, sampler draws
@@ -69,7 +91,9 @@ Phases, each printing its own line of numbers:
                  against itself, or a kernel that did not launch; then
                  tools.test_vpq --aug (each frame and its flip) on the same
                  checkpoint, scored by tools.eval_vpq. On its fixture and
-                 checkpoint, before they are removed:
+                 checkpoint, before they are removed ("tools": publish_model
+                 twice, analyze_logs, get_flops at 1024x2048,
+                 upgrade_model_version, profile_ops with 2 calls an op):
      robustness -- tools.test_robustness at half-flow over the first val
                  video's first 2 frames, clean and under gaussian_noise,
                  motion_blur, fog and jpeg_compression at severities 1 and
@@ -107,7 +131,7 @@ Phases, each printing its own line of numbers:
   7. zoo      -- the R-CNN zoo's inference at full width, written from the
                  public mmdetection v1.0 configs (R-50 FPN, 81 classes,
                  their test_cfg word for word, seeded random weights): one
-                 seeded 800x1333 image padded to 800x1344, 1 warm-up and 5
+                 seeded 800x1333 image padded to 800x1344, 1 warm-up and 3
                  timed images each, for Mask R-CNN ("mask_rcnn"), Cascade
                  Mask R-CNN ("cascade_mask_rcnn"), HTC ("htc") and the
                  other six types ("zoo rpn", "zoo fast_rcnn" on the RPN's
@@ -150,7 +174,7 @@ Phases, each printing its own line of numbers:
                  max pools, vps_tpu's nearest build of start_level=1 and
                  add_extra_convs; every key without a counterpart printed):
                  the zoo's seeded 800x1333 image padded to 800x1344 (SSD300
-                 a seeded 300x300 one), 1 warm-up and 5 timed images each
+                 a seeded 300x300 one), 1 warm-up and 3 timed images each
                  ("single stage <name>"), the zoo's checks and one profiled
                  image (RepPoints' DCNs in the range reppoints_dcn); the
                  tiny configs of the CPU tests on the card against the CPU
@@ -172,7 +196,7 @@ Phases, each printing its own line of numbers:
                  v1.0's configs/guided_anchoring/, every key without a
                  counterpart printed) at full width on the zoo's seeded
                  image, under inference_policy: the masked forward and
-                 ga_bboxes / ga_rpn_proposals, 1 warm-up and 2 timed images
+                 ga_bboxes / ga_rpn_proposals, 1 warm-up and 1 timed image
                  ("ga <name>"), images/s, peak memory, host syncs, the share
                  of locations the loc filter keeps per level, one image
                  profiled by backbone_fpn, ga_head, feature_adaption,
@@ -204,8 +228,8 @@ Phases, each printing its own line of numbers:
                  memory, launches and the all-reduce's share of its step.
                  "dist train", in the dataset phase on its fixture:
                  vps_torch/tools/dist_train.sh NPROC=2 --dist-backend gloo
-                 --device cuda:0, 2 epochs of 1 step, the eval hook each
-                 epoch (each rank its val video, merged on rank 0): both
+                 --device cuda:0, 1 epoch of 1 step, the eval hook after
+                 it (each rank its val video, merged on rank 0): both
                  ranks exit 0, one checkpoint, hosts=2 in train.log, rank 1
                  logs nothing below ERROR, each epoch's merge holds every
                  val frame once; each rank's launches from the file it
@@ -213,11 +237,22 @@ Phases, each printing its own line of numbers:
  13. native   -- the native host library (vps_torch.native, g++) against
                  its numpy versions on seeded masks and boxes, with host ms
                  of each; the detection eval's IoU goes through it.
+ 14. preset accuracy -- vps_torch.tools.preset_accuracy end to end, its
+                 children on the card: the tiny FuseTrack trained 1 epoch on
+                 3 synthetic videos of 4 frames (12 steps), all five
+                 presets scored by test_vpq and eval_vpq (1 val video);
+                 fails unless the table holds the five with VPQ in [0, 100]
+                 and an epoch's loss; prints each child's seconds.
+Run order: as numbered, except that every tiny model's phase ("small ...")
+runs at the end of the dataset phase, after "tools", beside "dist train"
+and "preset accuracy" (their work is in child processes; the small phases
+time nothing), before "native" and "viper".
 Each path is driven with every launch count set to 0 just before it and read
 just after (a rank process counts its own; "dist step" and "dist train" sum
 the ranks'). Then a `kernels` JSON line (corr_bf16_tc, corr_f32,
 corr_backward, dcw_fused: each with the launches of its own path and
-``launches_by_path``), the nvidia-smi line and, last, the result line
+``launches_by_path``; corr_backward also by route, f32 and bf16, on each
+path that launched it), the nvidia-smi line and, last, the result line
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0, no
 result.
 TF32 is off for matmuls and convolutions (vps_torch.utils.numerics.f32_policy,
@@ -238,6 +273,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -260,9 +296,9 @@ DCN_CONVS = [(256, 256), (256, 128), (128, 128)]
 TRAIN_H, TRAIN_W, MAX_GT = 800, 1600, 100
 TRAIN_STEPS = 4
 # the "ohem train" path: the RCNN sampler OHEM, as mmdet's OHEM configs set
-# it, 1 warm-up + 2 timed steps
+# it, 1 warm-up + 1 timed step (one, for the script's time)
 OHEM = dict(type="OHEMSampler", num=512, pos_fraction=0.25)
-OHEM_STEPS = 3
+OHEM_STEPS = 2
 TRAIN_CORR = (1, TRAIN_H // 4, TRAIN_W // 4, 256)
 # the "viper" phase: a synthetic fixture in VIPER's format at its frame size
 # (1 train video of 2 frames, 2 val videos of 15: VIPER's largest VPQ
@@ -301,6 +337,11 @@ def nvidia_smi() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip()
+
+
+# CUDA-event medians of a plain version over few calls, for the script's
+# time (the plain versions take 10-250 ms a call)
+PLAIN_ITERS = 5
 
 
 def cuda_ms(fn, iters=25, warmup=3):
@@ -412,7 +453,9 @@ def phase_kernels_correlation():
              for dt in ("bfloat16", "float32")]
     cases += [("train-liteflow", TRAIN_CORR, 4, 1, "float32"),
               ("train-flownetc", flownetc_shape(TRAIN_H, TRAIN_W), 20, 2, "float32"),
-              ("exact-flownetc", flownetc_shape(H, W, 1.0), 20, 2, "float32")]
+              ("exact-flownetc", flownetc_shape(H, W, 1.0), 20, 2, "float32"),
+              # the fast presets' FlowNetC: flow input at scale 0.25
+              ("fast-flownetc", flownetc_shape(H, W, 0.25), 20, 2, "bfloat16")]
     # VIPER's 1080x1920 frame at the test scale (1820x1024, padded to
     # 1824x1024): half-flow (bf16) and exact (f32) at both call sites;
     # widths 456 and 120 / 232, not multiples of 64
@@ -457,7 +500,8 @@ def phase_kernels_correlation():
         max_err[dt] = max(max_err[dt], float(err.max()))
         ms = cuda_ms(lambda: correlation(f1, f2, md, s2))
         plain = (float("nan") if name.startswith("ragged") else
-                 cuda_ms(lambda: correlation_reference(f1, f2, md, s2), iters=20))
+                 cuda_ms(lambda: correlation_reference(f1, f2, md, s2),
+                         iters=PLAIN_ITERS, warmup=1))
         bound, by = correlation_bound_ms(shape, md, s2, dt)
         print(f"kernel correlation {name} {tuple(shape)} md={md} s2={s2} {dt}: "
               f"max_abs_err={float(err.max()):.3e} (tol {atol:g} + {rtol:g}*|ref|) "
@@ -522,7 +566,8 @@ def _windowed_case(gen, shape, cout, window, scale, dt, rounded=False):
     ref_max = float(want.abs().max())
     tol = 2.0 ** -16 * ref_max if dt == "bfloat16" else 1e-4 * ref_max + 1e-5
     ms = cuda_ms(lambda: deform_conv2d_windowed(*args))
-    plain = cuda_ms(lambda: deform_conv2d_windowed_reference(*args), iters=10)
+    plain = cuda_ms(lambda: deform_conv2d_windowed_reference(*args),
+                    iters=PLAIN_ITERS, warmup=1)
     bound, by = windowed_bound_ms(b, h, w, cin, cout, dt)
     print(f"kernel deform_conv_windowed {tuple(shape)}->{cout} R={window} "
           f"offsets N(0,{scale:g}){' rounded' if rounded else ''} {dt}: "
@@ -628,7 +673,8 @@ def phase_kernels_correlation_backward():
         max_err = max(max_err, err)
         ms = cuda_ms(lambda: correlation_backward(g, f1, f2, md, s2))
         plain = (float("nan") if name == "ragged" else cuda_ms(
-            lambda: correlation_backward_reference(g, f1, f2, md, s2), iters=10))
+            lambda: correlation_backward_reference(g, f1, f2, md, s2),
+            iters=PLAIN_ITERS, warmup=1))
         bound, by = correlation_backward_bound_ms(shape, md, s2, dt)
         print(f"kernel correlation_backward {name} {tuple(shape)} md={md} s2={s2} "
               f"{dt}: max_abs_err={err:.3e} (tol {rel:g}*max|ref|, max|ref| "
@@ -748,6 +794,9 @@ def _sync(device):
 
 
 KERNELS = ("corr_bf16_tc", "corr_f32", "corr_backward", "dcw_fused")
+# what launch_counts() reports: the kernels, and corr_backward's launches on
+# its bf16 route (a part of its count)
+COUNTED = KERNELS + ("corr_backward_bf16",)
 
 
 def _reset_counts():
@@ -759,6 +808,8 @@ def _reset_counts():
         correlation.route_launches[route] = 0
     correlation.launches = 0
     correlation_backward.launches = 0
+    for route in correlation_backward.route_launches:
+        correlation_backward.route_launches[route] = 0
     deform_conv2d_windowed.launches = 0
 
 
@@ -770,8 +821,9 @@ def _counts():
 
 
 def _want(**counts):
-    """Expected launch counts: the ones given, 0 for every other kernel."""
-    return {k: counts.get(k, 0) for k in KERNELS}
+    """Expected launch counts: the ones given, 0 for every other kernel
+    (corr_backward on its f32 route unless corr_backward_bf16 is given)."""
+    return {k: counts.get(k, 0) for k in COUNTED}
 
 
 def _half_flow(kind, device, dcn_window=None):
@@ -820,9 +872,11 @@ def _drive(det, frames, device, after_first=None):
     return out, carry, t1 - t0, (len(frames) - 1) / (t2 - t1), launches, peak
 
 
-def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
+def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None, then=None):
     """The R-50 half-flow path (with ``dcn_window`` set: the windowed
-    semantic head). Returns the launch counts of the run."""
+    semantic head). ``then(det, frames, fps)``: called last with the
+    detector, the clip and the steady frames/s ("presets"). Returns the
+    launch counts of the run."""
     import torch
     from vps_torch.models.panoptic_fpn import DeformConvWithOffset
 
@@ -863,31 +917,120 @@ def phase_main(smi, device="cuda", h=H, w=W, dcn_window=None):
              if dcn_window else "")
           + f"dets/frame {out['det_valid'].sum(1).tolist()}, kept/frame "
           f"{out['num_keep'].tolist()}, TF32 off; card: {smi}")
+    if then is not None:
+        then(det, frames, fps)
     return launches
+
+
+# the inference presets other than half-flow ("presets"), and the frames
+# each drives: 1 warm-up (a reset) + 2 steady
+PRESET_NAMES = ("exact", "lowres-sem", "fast", "fast-lowres")
+PRESET_FRAMES = 3
+# "small <preset>": the tiny model at these presets on the card against the
+# CPU (exact is "small"), its towers in f32: with bf16 towers the card's
+# and the CPU's convolutions round apart and the fusion keeps other dets
+# (on the H100: num_keep differs at all three; in f32 all three meet the
+# bars)
+SMALL_PRESETS = ("lowres-sem", "fast", "fast-lowres")
+
+
+def phase_presets(smi, main_det, frames, main_fps, device="cuda"):
+    """The four other inference presets at R-50 over the first
+    PRESET_FRAMES frames of main's clip, each a build of its config with
+    main's weights loaded (presets carry no parameters): steady frames/s
+    beside main's from this call, peak memory, launches, dets and kept per
+    frame, then one more frame under torch.profiler (host syncs, device
+    busy, the semantic head's kernel and host ms). Fails on an output of
+    the wrong shape or not finite, or launches other than 2 correlations a
+    frame on the preset's route (corr_f32 for exact, corr_bf16_tc for the
+    others). Returns the launch counts by path ("preset <name>")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from vps_torch import zoo
+    from vps_torch.models.detectors import build_detector, predict_video
+    from vps_torch.profile import read_profile, STAGES
+
+    on_card = torch.device(device).type == "cuda"
+    h, w = frames.shape[2:4]
+    clip = frames[:PRESET_FRAMES]
+    weights = main_det.state_dict()
+    paths = {}
+    for preset in PRESET_NAMES:
+        t0 = time.perf_counter()
+        cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), preset)
+        det = build_detector(cfg, test_cfg=zoo.fusetrack_test_cfg(),
+                             device=device)
+        det.load_state_dict(weights, strict=True)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        cap_det = det.test_cfg["panoptic"]["max_det"]
+        out, carry, first_s, fps, launches, peak = _drive(det, clip, device)
+        _check_outputs(out, PRESET_FRAMES, cap_det, h, w)
+        route = "corr_f32" if preset == "exact" else "corr_bf16_tc"
+        want = _want(**{route: 2 * PRESET_FRAMES})
+        prof_line = ""
+        if on_card:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t1 = time.perf_counter()
+                predict_video(det, frames[PRESET_FRAMES:PRESET_FRAMES + 1],
+                              [False], carry[0], carry[2],
+                              prev_feats=carry[1])
+                _sync(device)
+                wall = time.perf_counter() - t1
+            p = read_profile(prof, STAGES)
+            k, hst = p.ranges.get("semantic_head", (0.0, 0.0))
+            prof_line = (f", one more frame profiled: host syncs {p.syncs}, "
+                         f"device busy "
+                         f"{sum(p.kernels.values()) / (wall * 1e6):.3f}, "
+                         f"semantic_head kernels {k / 1e3:.2f} ms host "
+                         f"{hst / 1e3:.2f} ms")
+        print(f"presets: {preset} R-50 {h}x{w} x{PRESET_FRAMES} frames of "
+              f"main's clip (frame 0 reset), main's weights, build "
+              f"{init_s:.1f}s, first frame {first_s:.3f}s, steady {fps:.3f} "
+              f"frames/s over {PRESET_FRAMES - 1} frames ({fps / main_fps:.2f}x "
+              f"main's {main_fps:.3f} in this call), peak mem "
+              f"{peak / 2**30:.2f} GiB, launches {launches}, dets/frame "
+              f"{out['det_valid'].sum(1).tolist()}, kept/frame "
+              f"{out['num_keep'].tolist()}{prof_line}; card: {smi}")
+        if on_card and launches != want:
+            raise AssertionError(f"presets {preset}: kernel launches "
+                                 f"{launches} != {want}")
+        paths[f"preset {preset}"] = launches
+        del det, out, carry
+    return paths
+
+
+# the clip's first frames that "main repeatable" drives (3, for the
+# script's time)
+REPEAT_FRAMES = 3
 
 
 def _repeatable(det, frames, device, out, fps, smi):
     """The main path's repeatability: where two predict_video runs part
-    (_predict_determinism, over the clip's first 3 frames), then the clip
-    driven twice under ``inference_policy``, whose outputs must be bitwise
-    equal, and once more without it, compared with ``out``, the main path's
-    own run (without the policy); prints the steady frames/s of each run
-    beside ``fps``, the main run's."""
+    (_predict_determinism, over the clip's first 3 frames), then the clip's
+    first REPEAT_FRAMES frames driven twice under ``inference_policy``,
+    whose outputs must be bitwise equal, and once more without it, compared
+    with ``out``, the main path's own run (without the policy); prints the
+    steady frames/s of each run beside ``fps``, the main run's."""
     import torch
     from vps_torch.utils.numerics import inference_policy
 
     _predict_determinism(det, frames[:3])
+    clip = frames[:REPEAT_FRAMES]
     runs = []
     with inference_policy():
         for _ in range(2):
-            o, _, _, f, _, _ = _drive(det, frames, device)
+            o, _, _, f, _, _ = _drive(det, clip, device)
             runs.append((o, f))
-    free, _, _, ffree, _, _ = _drive(det, frames, device)
+    free, _, _, ffree, _, _ = _drive(det, clip, device)
     (a, fa), (b, fb) = runs
     same = [k for k in a if torch.equal(a[k], b[k])]
-    same_free = [k for k in out if torch.equal(out[k], free[k])]
-    print(f"main repeatable: the clip twice under inference_policy (cuDNN "
-          f"deterministic, no benchmark): {len(same)} of {len(a)} outputs "
+    same_free = [k for k in out
+                 if torch.equal(out[k][:REPEAT_FRAMES], free[k])]
+    print(f"main repeatable: the clip's first {REPEAT_FRAMES} frames twice "
+          f"under inference_policy (cuDNN deterministic, no benchmark): "
+          f"{len(same)} of {len(a)} outputs "
           f"bitwise equal; twice without it: {len(same_free)} of {len(out)}; "
           f"steady frames/s without the policy {fps:.3f} (the main run), "
           f"{ffree:.3f} (after); with it {fa:.3f}, {fb:.3f}; card: {smi}")
@@ -1054,9 +1197,9 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
     clock around each step, ending in a synchronize). ``sampler``: the RCNN
     sampler's config in place of fusetrack_train_cfg's RandomSampler (the
     "ohem train" path); the determinism probe and the profiled step run only
-    without it. ``then(det, loader)``: called last, with the trained
-    detector and the loader ("dist world 1"). Returns the launch counts of
-    the run."""
+    without it. ``then(det, loader, s_per_step)``: called last, with the
+    trained detector, the loader and the timed steps' mean ("dist world 1",
+    "bf16 train"). Returns the launch counts of the run."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import PanopticFuseTrack, random_init_
@@ -1134,7 +1277,148 @@ def phase_train(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
         train_step(det, loader.batch, state.optimizer,
                    torch.Generator(device=device).manual_seed(SEED))
     if then is not None:
-        then(det, loader)
+        then(det, loader, statistics.mean(timed))
+    return launches
+
+
+BF16_TRAIN_STEPS = 3  # 1 warm-up + 2 timed, from one state
+
+
+def _record_correlation(store):
+    """Patches the correlation's autograd function so that its calls keep
+    their inputs, output, cotangent and input gradients in ``store`` (the
+    first call only); returns the undo. It launches nothing of its own."""
+    import importlib
+
+    cls = importlib.import_module("vps_torch.ops.correlation")._Correlation
+    fwd, bwd = cls.forward, cls.backward
+
+    def forward(ctx, f1, f2, md, s2):
+        out = fwd(ctx, f1, f2, md, s2)
+        if "forward" not in store:
+            store["forward"] = (f1.detach().clone(), f2.detach().clone(), md,
+                                s2, out.detach().clone())
+        return out
+
+    def backward(ctx, g):
+        grads = bwd(ctx, g)
+        if "backward" not in store:
+            store["backward"] = (g.detach().clone(),) + tuple(
+                None if t is None else t.detach().clone() for t in grads[:2])
+        return grads
+
+    cls.forward, cls.backward = staticmethod(forward), staticmethod(backward)
+
+    def undo():
+        cls.forward, cls.backward = staticmethod(fwd), staticmethod(bwd)
+    return undo
+
+
+def _check_step_correlation(store, label):
+    """The correlation's forward and backward as a training step launched
+    them (LiteFlowNetCorr's call, the step's own cotangent) against their
+    plain versions on the same tensors, with phase 2's bars: forward one
+    bf16 ulp (rtol 2^-7) + 1e-6; backward 2^-7 of the largest plain
+    gradient (bf16; f32: 1e-5 and 1e-5 of the largest)."""
+    import torch
+    from vps_torch.ops import (correlation_backward_reference,
+                               correlation_reference)
+
+    f1, f2, md, s2, out = store["forward"]
+    g, gf1, gf2 = store["backward"]
+    bf16 = f1.dtype == torch.bfloat16
+    want = correlation_reference(f1, f2, md, s2).float()
+    rtol, atol = (2.0 ** -7, 1e-6) if bf16 else (1e-5, 1e-5)
+    fwd_err = (out.float() - want).abs()
+    fwd_ok = bool((fwd_err <= atol + rtol * want.abs()).all())
+    wants = correlation_backward_reference(g, f1, f2, md, s2)
+    rel = 2.0 ** -7 if bf16 else 1e-5
+    ref_max = max(float(w.float().abs().max()) for w in wants)
+    bwd_err = max(float((a.float() - w.float()).abs().max())
+                  for a, w in zip((gf1, gf2), wants))
+    bwd_ok = gf1 is not None and gf2 is not None and bwd_err <= rel * ref_max
+    print(f"{label}: the step's correlation {tuple(f1.shape)} md={md} "
+          f"s2={s2} {f1.dtype} against its plain version on the step's own "
+          f"tensors: forward max_abs_err {float(fwd_err.max()):.3e} (tol "
+          f"{atol:g} + {rtol:g}*|ref|) {'ok' if fwd_ok else 'FAIL'}; backward "
+          f"(cotangent max {float(g.float().abs().max()):.3e}) max_abs_err "
+          f"{bwd_err:.3e} (tol {rel:g}*max|ref|, max|ref| {ref_max:.3e}) "
+          f"{'ok' if bwd_ok else 'FAIL'}")
+    if not (fwd_ok and bwd_ok):
+        raise AssertionError(f"{label}: the step's correlation disagrees "
+                             f"with its plain version")
+
+
+def phase_bf16_train(smi, f32_det, batch, f32, device="cuda"):
+    """FuseTrack training with the config's bf16 compute knobs (the JAX
+    profile_train's default; ``vps_torch.tools.profile_train``'s
+    ``build_model`` and ``Stepper``), on the train phase's batch and from
+    its detector's weights: BF16_TRAIN_STEPS steps under train_policy, each
+    from the same weights and optimizer state; prints s/step beside the f32
+    train phase's from this call, peak memory, nonfinite_skips and the loss
+    terms. Fails on a non-finite loss term, launches other than 2
+    corr_bf16_tc and 1 corr_backward on its bf16 route a step, two steps
+    from one state that are not bitwise equal in every loss term and
+    parameter, or a correlation whose forward or backward, as the first
+    step launched them (its own inputs and cotangent), disagrees with the
+    plain version (``_check_step_correlation``). ``f32``: the f32 train phase's s/step. Returns the launch
+    counts of the run ("bf16 train")."""
+    import torch
+    from vps_torch.tools.profile_train import Stepper, build_model
+
+    t0 = time.perf_counter()
+    det = build_model(device, f32=False, seed=None)
+    det.load_state_dict(f32_det.state_dict(), strict=True)
+    stepper = Stepper(det)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    runs, store = [], {}
+    for i in range(BF16_TRAIN_STEPS):
+        undo = _record_correlation(store) if i == 0 else None
+        try:
+            dt, logs = stepper.step(batch)
+        finally:
+            if undo is not None:
+                undo()
+        runs.append((dt, logs, {n: p.detach().clone()
+                                for n, p in det.named_parameters()}))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    (_, l1, p1), (_, l2, p2) = runs[1], runs[2]
+    same_terms = [k for k in l1 if l1[k] == l2[k]]
+    same_params = [n for n in p1 if torch.equal(p1[n], p2[n])]
+    timed = [r[0] for r in runs[1:]]
+    bad = sorted({k for _, lg, _ in runs for k, v in lg.items()
+                  if not np.isfinite(v)})
+    skips = stepper.opt.total_notfinite
+    h, w = batch["img"].shape[1:3]
+    print(f"bf16 train: PanopticFuseTrack R-50 bf16 compute {h}x{w} batch 1 "
+          f"(the train phase's batch and weights), init {init_s:.1f}s, first "
+          f"step {runs[0][0]:.3f}s, {statistics.mean(timed):.4f} s/step over "
+          f"{len(timed)} steps ({', '.join(f'{t:.4f}' for t in timed)}; the "
+          f"f32 train phase {f32:.4f} s/step, ratio "
+          f"{statistics.mean(timed) / f32:.3f}), peak mem "
+          f"{peak / 2**30:.2f} GiB, nonfinite_skips {skips}, launches "
+          f"{launches} over {len(runs)} steps; two steps from one state: "
+          f"loss terms {len(same_terms)} of {len(l1)} bitwise equal, "
+          f"parameters {len(same_params)} of {len(p1)}; card: {smi}")
+    print(f"bf16 train: step 1 {_losses_line(runs[0][1])}")
+    if bad:
+        raise AssertionError(f"bf16 train: non-finite {bad}")
+    n = len(runs)
+    want = _want(corr_bf16_tc=2 * n, corr_backward=n, corr_backward_bf16=n)
+    if on_card and launches != want:
+        raise AssertionError(f"bf16 train: kernel launches {launches} != "
+                             f"{want}")
+    if len(same_terms) != len(l1) or len(same_params) != len(p1):
+        raise AssertionError("bf16 train: two steps from one state differ")
+    if on_card:  # the CPU runs the plain version, outside _Correlation
+        _check_step_correlation(store, "bf16 train")
+    del det, stepper, runs, store
     return launches
 
 
@@ -1210,9 +1494,10 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
     scored by eval_vpq. ``tiny``: the tiny model and pipelines at h x w, for
     a CPU rehearsal. ``then``: phases that run on the fixture and the
     checkpoint before they are removed, each called with a dict of their
-    paths (``cfg``, ``ckpt``, ``val_ann``, ``val_img``, ``tmp``) and sizes
-    (``val_frames``, ``val_videos``, ``tiny``, ``h``, ``w``) and
-    returning its launch counts by path. Returns the launch counts of the
+    paths (``cfg``, ``ckpt``, ``val_ann``, ``val_img``, ``tmp``, ``log``:
+    the run's train.log), sizes (``val_frames``, ``val_videos``, ``tiny``,
+    ``h``, ``w``), the trained detector (``det``) and the Runner's
+    ``hist``, and returning its launch counts by path. Returns the launch counts of the
     train, test and aug runs (and of ``then``'s paths) by path."""
     import torch
     from vps_torch.data.synth import make_synth_vps
@@ -1263,6 +1548,7 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
         train_launches = _counts()
         train_peak = torch.cuda.max_memory_allocated() if on_card else 0
         hist = runner.log_history
+        trained = runner.detector
         del runner
         loader_s = _loader_seconds(cfg_path)
         if len(hist) != train_frames:
@@ -1327,7 +1613,10 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
                                     val_img=val_img, tmp=tmp,
                                     val_frames=val_frames,
                                     val_videos=val_videos, tiny=tiny, h=h,
-                                    w=w)))
+                                    w=w, det=trained, hist=hist,
+                                    log=os.path.join(tmp, "work",
+                                                     "train.log"))))
+        del trained
 
     n_val = val_videos * val_frames
     steps = [r["time"] for r in hist[1:]]
@@ -1389,7 +1678,137 @@ def phase_dataset(smi, numerics, device="cuda", h=H, w=W, tiny=False,
     return dict(got, **later)
 
 
-ROBUST_FRAMES = 2  # the first two frames of the first val video
+def phase_tools(smi, fx, device="cuda"):
+    """The repo's smaller tools through the port's counterparts, on the
+    dataset phase's checkpoint and train.log (``fx``): publish_model twice
+    (the same name both times, no opt_state, and the published weights load
+    strictly into the trained detector with every tensor equal to the
+    checkpoint's), analyze_logs (every logged iteration found, the loss
+    equal to the Runner's), get_flops at the frame size (parameters, GFLOPs
+    and the correlation's share), upgrade_model_version on a seeded
+    old-style RetinaNet tower dict (the tower keys renamed, every tensor
+    kept), and profile_ops with 2 calls an op at the JAX tool's shapes.
+    Returns {} (no launch is counted for a path here)."""
+    import torch
+    from vps_torch.tools import (analyze_logs, get_flops, profile_ops,
+                                 publish_model, upgrade_model_version)
+    from vps_torch.utils.checkpoint import load_checkpoint
+
+    t = {}
+    t0 = time.perf_counter()
+    pub = os.path.join(fx["tmp"], "published")
+    names = [publish_model.main([fx["ckpt"], pub]) for _ in range(2)]
+    published = torch.load(names[0], map_location="cpu", weights_only=True)
+    source = load_checkpoint(fx["ckpt"])
+    det = fx["det"]
+    det.load_state_dict(published["state_dict"], strict=True)
+    equal = sum(torch.equal(v.cpu(), source["state_dict"][k])
+                for k, v in det.state_dict().items())
+    with open(os.path.join(pub, "latest.txt")) as f:
+        latest = f.read().strip()
+    t["publish_model x2"] = time.perf_counter() - t0
+    print(f"tools: publish_model twice: {os.path.basename(names[0])} and "
+          f"{os.path.basename(names[1])}, latest.txt {latest}, keys "
+          f"{sorted(published)}, source keys {sorted(source)}; loaded into "
+          f"the trained detector strictly, {equal} of "
+          f"{len(source['state_dict'])} tensors equal to the checkpoint's")
+    if (names[0] != names[1] or "opt_state" in published
+            or latest != os.path.basename(names[0])
+            or equal != len(source["state_dict"])):
+        raise AssertionError("tools: publish_model")
+
+    t0 = time.perf_counter()
+    runs = analyze_logs.main([fx["log"], "--keys", "loss", "loss_segm"])
+    t["analyze_logs"] = time.perf_counter() - t0
+    hist = fx["hist"]
+    if (runs["iter"] != [r["iter"] for r in hist]
+            or any(abs(a - r["loss"]) > 5e-5 * max(1.0, abs(r["loss"]))
+                   for a, r in zip(runs["loss"], hist))):
+        raise AssertionError(f"tools: analyze_logs found {runs['iter']}, "
+                             f"the Runner logged "
+                             f"{[r['iter'] for r in hist]}")
+
+    t0 = time.perf_counter()
+    flops = get_flops.main([fx["cfg"], "--shape", str(fx["h"]), str(fx["w"]),
+                            "--device", device])
+    t["get_flops"] = time.perf_counter() - t0
+    if not (flops["params"] > 0 and flops["flops"] > flops["correlation"] > 0):
+        raise AssertionError(f"tools: get_flops {flops['params']} params, "
+                             f"{flops['flops']} flops")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(SEED)
+    old = {k: torch.randn(shape, generator=gen) for k, shape in (
+        ("backbone.conv1.weight", (64, 3, 7, 7)),
+        ("bbox_head.cls_convs.0.weight", (256, 256, 3, 3)),
+        ("bbox_head.cls_convs.0.bias", (256,)),
+        ("bbox_head.reg_convs.3.weight", (256, 256, 3, 3)),
+        ("bbox_head.retina_cls.weight", (720, 256, 3, 3)))}
+    src = os.path.join(fx["tmp"], "old_retina.pth")
+    dst = os.path.join(fx["tmp"], "new_retina.pth")
+    torch.save({"state_dict": old, "meta": {"mmdet_version": "0.5.7"}}, src)
+    upgrade_model_version.main([src, dst])
+    new = torch.load(dst, map_location="cpu", weights_only=True)
+    renamed = {"bbox_head.cls_convs.0.weight": "bbox_head.cls_convs.0.conv.weight",
+               "bbox_head.cls_convs.0.bias": "bbox_head.cls_convs.0.conv.bias",
+               "bbox_head.reg_convs.3.weight": "bbox_head.reg_convs.3.conv.weight"}
+    want = {renamed.get(k, k): v for k, v in old.items()}
+    got = new["state_dict"]
+    ok = set(got) == set(want) and all(torch.equal(got[k], v)
+                                       for k, v in want.items())
+    t["upgrade_model_version"] = time.perf_counter() - t0
+    print(f"tools: upgrade_model_version: {sorted(got)}, every tensor kept "
+          f"{ok}, meta {new.get('meta')}")
+    if not ok:
+        raise AssertionError("tools: upgrade_model_version")
+
+    t0 = time.perf_counter()
+    ops = profile_ops.main(["--reps", "2", "--device", device]
+                           + (["--scale", "8"] if fx["tiny"] else []))
+    t["profile_ops"] = time.perf_counter() - t0
+    if len(ops) != 17:
+        raise AssertionError(f"tools: profile_ops timed {len(ops)} ops")
+    print("tools: seconds " + ", ".join(f"{k} {v:.1f}" for k, v in t.items())
+          + f"; card: {smi}")
+    return {}
+
+
+def phase_preset_accuracy(smi, device="cuda", size="256x128"):
+    """``vps_torch.tools.preset_accuracy`` end to end at a shallow depth (all
+    five presets; 1 epoch of 3 train videos of 4 frames, 12 steps, one loss
+    line at the log interval of 10; 1 val video), its children on
+    ``device``: fails unless it returns a table of the five presets with
+    each VPQ in [0, 100] and at least one epoch's loss. Prints each child's
+    wall seconds. Returns {} (its kernels launch in its children)."""
+    from vps_torch.tools import preset_accuracy
+
+    os.makedirs(WORK_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=WORK_DIR) as tmp:
+        t0 = time.perf_counter()
+        res = preset_accuracy.main([
+            "--work_dir", tmp, "--epochs", "1", "--train_videos", "3",
+            "--val_videos", "1", "--frames", "4", "--size", size,
+            "--device", device])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(tmp, "preset_accuracy.json")) as f:
+            written = json.load(f)
+    table = written["presets"]
+    print(f"preset accuracy: {wall:.1f}s wall; children " + ", ".join(
+        f"{tag} {sec:.1f}s" for tag, sec in res["children"])
+        + "; VPQ " + ", ".join(f"{k} {v['vpq_all']:.2f}"
+                               for k, v in table.items())
+        + f"; epoch losses {written['epoch_losses']}; card: {smi}")
+    vpqs = [x for v in table.values() for x in v.values()]
+    if (sorted(table) != sorted(("exact", "half-flow", "lowres-sem", "fast",
+                                 "fast-lowres"))
+            or not all(0.0 <= x <= 100.0 for x in vpqs)
+            or not written["epoch_losses"]):
+        raise AssertionError(f"preset accuracy: {table}, epoch losses "
+                             f"{written['epoch_losses']}")
+    return {}
+
+
+ROBUST_FRAMES = 1  # the first val video's first frame
 ROBUST_CORRUPTIONS = ("gaussian_noise", "motion_blur", "fog",
                       "jpeg_compression")
 ROBUST_SEVERITIES = (5,)  # one severity, for the script's time (PERF.md §4)
@@ -2401,15 +2820,19 @@ def _towers(cfg, kind):
 
 
 def _small_pair(device, kind="PanopticFuseTrack", dcn_window=None,
-                refine_type="conv"):
-    """The tiny exact-preset model (R-18, TinyFlow) on the CPU, seeded, and
-    a copy of it on ``device``."""
+                refine_type="conv", preset="exact", f32=False):
+    """The tiny model (R-18, TinyFlow) at ``preset`` (with ``f32``: its
+    towers computing in f32, the preset's other knobs kept) on the CPU,
+    seeded, and a copy of it on ``device``."""
     import torch
     from vps_torch import zoo
     from vps_torch.models.detectors import build_detector, random_init_
 
-    cfg = _towers(zoo.exact_overrides(zoo.tiny_overrides(
-        zoo.fusetrack_model_cfg())), kind)
+    cfg = zoo.preset_overrides(zoo.tiny_overrides(zoo.fusetrack_model_cfg()),
+                               preset)
+    if f32:
+        cfg = zoo.f32_compute_overrides(cfg)
+    cfg = _towers(cfg, kind)
     cfg["panoptic"]["dcn_window"] = dcn_window
     if cfg["extra_neck"] is not None:
         cfg["extra_neck"]["refine_type"] = refine_type
@@ -2455,30 +2878,270 @@ def _small_gates(label, got, want):
 
 
 def phase_small(device="cuda", dcn_window=None, kind="PanopticFuseTrack",
-                refine_type="conv"):
+                refine_type="conv", preset="exact", f32=False):
     """Port on the card vs the port's plain CPU path, same weights, tiny
-    exact-preset model (R-18, TinyFlow) of the detector ``kind`` on a
-    3-frame 64x128 clip (with ``dcn_window``: the windowed kernel on the
-    card, its plain version on the CPU; ``refine_type``: the fuse neck's)."""
+    model (R-18, TinyFlow) of the detector ``kind`` at ``preset`` (``f32``:
+    its towers in f32) on a 3-frame 64x128 clip (with ``dcn_window``: the
+    windowed kernel on the card, its plain version on the CPU;
+    ``refine_type``: the fuse neck's). A preset whose towers compute in
+    bf16 is held by ``_small_bf16_gates``, every other run by
+    ``_small_gates``."""
     import torch
     from vps_torch.models.detectors import empty_track_state, predict_video
 
-    cpu, gpu = _small_pair(device, kind, dcn_window, refine_type)
+    cpu, gpu = _small_pair(device, kind, dcn_window, refine_type, preset, f32)
+    bf16 = cpu.backbone.conv1.compute_dtype == torch.bfloat16
     rng = np.random.RandomState(SEED + 1)
     clip = torch.from_numpy(rng.randn(3, 1, 64, 128, 3).astype(np.float32))
     resets = [True, False, False]
-    want, _ = predict_video(cpu, clip, resets, empty_track_state(64, device="cpu"),
-                            clip[0])
+    records = {"cpu": ([], [], []), "card": ([], [], [])}
+    undo = _record_towers(cpu, *records["cpu"]) if bf16 else None
+    try:
+        want, _ = predict_video(cpu, clip, resets,
+                                empty_track_state(64, device="cpu"), clip[0])
+    finally:
+        if undo is not None:
+            undo()
     _reset_counts()
-    got, _ = predict_video(gpu, clip.to(device), resets,
-                           empty_track_state(64, device=device),
-                           clip[0].to(device))
+    undo = (_record_towers(gpu, *records["card"], replay=records["cpu"][2])
+            if bf16 else None)
+    try:
+        got, _ = predict_video(gpu, clip.to(device), resets,
+                               empty_track_state(64, device=device),
+                               clip[0].to(device))
+    finally:
+        if undo is not None:
+            undo()
     if dcn_window and torch.device(device).type == "cuda" and \
             _counts()["dcw_fused"] != 12 * len(resets):
         raise AssertionError(f"small clip: {_counts()['dcw_fused']} "
                              f"windowed launches, want 12 a frame")
-    _small_gates(f"{kind} exact dcn_window={dcn_window} refine_type="
-                 f"{refine_type} 64x128 x3", got, want)
+    label = (f"{kind} {preset}{' f32 compute' if f32 else ''} "
+             f"dcn_window={dcn_window} refine_type={refine_type} 64x128 x3")
+    if bf16:
+        _small_bf16_gates(label, got, want, records)
+    else:
+        _small_gates(label, got, want)
+
+
+class _NearestPicks:
+    """A stand-in for ``torch`` in the modules whose nearest sampling rounds
+    sample positions (the DCN's and the warp's; ``round`` is called there
+    and nowhere else): every other name is torch's. ``round`` appends each
+    call's (input, result), on the CPU, to ``picks``; given ``replay``, the
+    CPU run's list, it returns the CPU's result of the same call instead of
+    its own, so that the card takes the CPU's discrete picks (as
+    phase_small_train replays the fuse neck's)."""
+
+    def __init__(self, picks, replay=None):
+        import torch
+        self._torch, self._picks, self._replay = torch, picks, replay
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def round(self, x):
+        own = self._torch.round(x)
+        self._picks.append((x.detach().float().cpu(), own.cpu()))
+        if self._replay is None:
+            return own
+        return self._replay[len(self._picks) - 1][1].to(x.device)
+
+
+def _record_towers(det, fusions, rpn, picks, replay=None):
+    """Patches the detector's panoptic fusion so that each call's inputs,
+    on the CPU, are appended to ``fusions``; hooks its RPN head, whose
+    outputs of each call go to ``rpn`` as one flat CPU tensor; and puts a
+    ``_NearestPicks`` over ``picks`` (and ``replay``) in the DCN's and the
+    warp's modules. Returns the undo."""
+    import torch
+    import vps_torch.models.detectors.panoptic as panoptic
+    import vps_torch.ops.deform_conv as deform_conv
+    import vps_torch.ops.warp as warp
+
+    fuse = panoptic.mask_removal_and_fuse
+
+    def recorded(*args, **kw):
+        fusions.append(([a.detach().cpu() if torch.is_tensor(a) else a
+                         for a in args], kw))
+        return fuse(*args, **kw)
+
+    def hook(module, inputs, outputs):
+        rpn.append(torch.cat([t.detach().float().cpu().reshape(-1)
+                              for level in outputs for t in level]))
+
+    panoptic.mask_removal_and_fuse = recorded
+    handle = det.rpn_head.register_forward_hook(hook)
+    deform_conv.torch = warp.torch = _NearestPicks(picks, replay)
+
+    def undo():
+        panoptic.mask_removal_and_fuse = fuse
+        handle.remove()
+        deform_conv.torch = warp.torch = torch
+    return undo
+
+
+def _fusion_decisions(args, kw):
+    """The fusion's keep decisions recomputed from its recorded inputs as
+    ``mask_removal_and_fuse`` takes them, det by det in its visiting order:
+    ([(det, class bit, prob, mask pixels, covered fraction, kept)], the
+    visited dets' binarised masks (V, H, W))."""
+    import torch
+    from vps_torch.models.detectors.panoptic_ops import (
+        FRACTION_THRESHOLD, _paste_logit_window)
+
+    boxes, probs, cls, valid, _, logits, fcn = args[:7]
+    num_things = fcn.shape[0] - kw.get("num_stuff", 11)
+    order = torch.argsort(-torch.where(valid, probs, torch.full_like(
+        probs, -float("inf"))), stable=True)
+    visit = order[:int(valid.sum())]
+    vals, window = _paste_logit_window(logits[visit], boxes[visit],
+                                       tuple(fcn.shape[-2:]))
+    masks = (vals > 0.0) & window
+    cover, rows = {}, []
+    for i, d in enumerate(visit.tolist()):
+        bit = min(max(int(cls[d]) - 1, 0), num_things - 1)
+        n = masks[i].sum()
+        covered = (cover[bit] & masks[i]).sum() if bit in cover else n * 0
+        frac = covered / n.clamp(min=1)  # as the fusion divides
+        kept = bool((n > 0) & (frac <= FRACTION_THRESHOLD))
+        if kept:
+            cover[bit] = masks[i] | cover.get(bit, torch.zeros_like(masks[i]))
+        rows.append((d, bit, float(probs[d]), int(n), float(frac), kept))
+    return rows, masks
+
+
+# bf16 towers, card vs CPU: cuDNN's roundings against oneDNN's. Gated:
+# the continuous outputs, as |card - cpu| / |cpu| over the tensor (one bf16
+# rounding is 2^-9 relative; the towers compound a few, in other orders on
+# each device), which a wrong bf16 path moves by far more
+BF16_SMALL_REL = 0.05
+# the fusion's 30% coverage bar takes a flip where a det's covered fraction
+# sits near it: within this of the bar on either device, a det is at the edge
+FLIP_EDGE = 0.1
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp(min=1e-30))
+
+
+def _small_bf16_gates(label, got, want, records):
+    """Card against CPU with the towers in bf16, where the tiny random model
+    turns roundings into discrete flips (a det's order, a mask binarised
+    from logits near 0, a keep decision at the fusion's bar, a nearest
+    sample; the card takes the CPU's nearest picks, ``_NearestPicks``, and
+    the picks its own rounding would have moved are counted). Gated, which
+    no rounding flip can break and a wrong bf16 path would: each frame's
+    semantic logits (the fusion's input) and each RPN call's outputs within
+    BF16_SMALL_REL, and the fusion's keep decisions, recomputed from each
+    device's own fusion inputs (``_fusion_decisions``), reproducing each
+    device's num_keep. Traced and printed, not gated: the detections (count,
+    labels, boxes of the same index), the semantic agreement, every keep
+    decision that differs for the same det index with its covered fractions
+    and mask sizes and its cause (at the edge of the bar, an empty mask on
+    one device, a class an earlier flip covered differently, or another
+    det at that index), and the panoptic maps' agreement, read as stuff
+    class or det (a flip shifts every later instance's rank), outside the
+    flipped dets' masks."""
+    import torch
+    from vps_torch.models.detectors.panoptic_ops import FRACTION_THRESHOLD
+
+    got = {k: v.cpu() for k, v in got.items()}
+    (fus_g, rpn_g, picks_g), (fus_c, rpn_c, picks_c) = (records["card"],
+                                                        records["cpu"])
+    fails = []
+    if (len(fus_g) != len(fus_c) or len(rpn_g) != len(rpn_c)
+            or len(picks_g) != len(picks_c)):
+        fails.append("calls")
+    # the nearest picks the card would have taken on its own: how many, and
+    # how near a half-way point their positions sat on either device
+    n_picks = sum(c[1].numel() for c in picks_c)
+    moved, near = 0, 0.0
+    for (xg, rg), (xc, rc) in zip(picks_g, picks_c):
+        differ = rg != rc
+        moved += int(differ.sum())
+        if differ.any():
+            half = torch.minimum((xg - xg.floor() - 0.5).abs(),
+                                 (xc - xc.floor() - 0.5).abs())
+            near = max(near, float(half[differ].max()))
+    sem = [_rel(g[0][6], c[0][6]) for g, c in zip(fus_g, fus_c)]
+    rpn = [_rel(g, c) for g, c in zip(rpn_g, rpn_c)]
+    if not max(sem + rpn) <= BF16_SMALL_REL:
+        fails.append("continuous outputs")
+    flips, agree, same_det = [], [], []
+    for f, (card, cpu) in enumerate(zip(fus_g, fus_c)):
+        (rows_g, masks_g), (rows_c, masks_c) = (_fusion_decisions(*card),
+                                                _fusion_decisions(*cpu))
+        for dev, rows, out in (("card", rows_g, got), ("cpu", rows_c, want)):
+            if sum(r[-1] for r in rows) != int(out["num_keep"][f]):
+                fails.append(f"frame {f} {dev} trace")
+        boxes_g, boxes_c = card[0][0], cpu[0][0]
+        by_c = {r[0]: (i, r) for i, r in enumerate(rows_c)}
+        flipped, bits = [], set()
+        for i, rg in enumerate(rows_g):
+            j, rc = by_c.get(rg[0], (None, None))
+            if rc is None or rg[-1] == rc[-1]:
+                continue
+            box = float((boxes_g[rg[0]] - boxes_c[rg[0]]).abs().max())
+            if min(abs(rg[4] - FRACTION_THRESHOLD),
+                   abs(rc[4] - FRACTION_THRESHOLD)) <= FLIP_EDGE:
+                cause = "at the edge"
+            elif min(rg[3], rc[3]) == 0:
+                cause = "an empty mask on one device"
+            elif rg[1] in bits:
+                cause = "an earlier flip"
+            elif box > 1.0:
+                cause = "another det at this index"
+            else:
+                cause = "untraced"
+            bits.add(rg[1])
+            flipped.append((i, j))
+            flips.append(cause)
+            print(f"small: {label} frame {f}: det {rg[0]} (class bit {rg[1]})"
+                  f" kept card {rg[-1]} cpu {rc[-1]}: covered fraction card "
+                  f"{rg[4]:.4f} cpu {rc[4]:.4f} (bar {FRACTION_THRESHOLD}), "
+                  f"mask pixels card {rg[3]} cpu {rc[3]}, prob card "
+                  f"{rg[2]:.5f} cpu {rc[2]:.5f}, box max diff {box:.3g}: "
+                  f"{cause}")
+        num_stuff = cpu[1].get("num_stuff", 11)
+        maps = []
+        for rows, out in ((rows_g, got), (rows_c, want)):
+            kept = torch.tensor([r[0] for r in rows if r[-1]] + [-1],
+                                dtype=torch.long)
+            pan = out["panoptic_outputs"][f].long()
+            rank = (pan - num_stuff).clamp(0, len(kept) - 1)
+            maps.append(torch.where(pan < num_stuff, pan,
+                                    num_stuff + kept[rank]))
+        ph, pw = maps[0].shape
+        outside = torch.ones((ph, pw), dtype=torch.bool)
+        for i, j in flipped:
+            outside &= ~(masks_g[i][:ph, :pw] | masks_c[j][:ph, :pw])
+        agree.append(float((maps[0] == maps[1])[outside].float().mean()))
+        valid = cpu[0][3] & card[0][3]
+        same_det.append(float((boxes_g - boxes_c).abs().max(1).values[valid]
+                              .le(1.0).float().mean()) if valid.any() else 1.0)
+    sseg = float((got["fcn_outputs"] == want["fcn_outputs"]).float().mean())
+    same = [k for k in ("det_valid", "det_labels")
+            if torch.equal(got[k].long(), want[k].long())]
+    print(f"small: {label} card vs cpu (bf16 towers): nearest picks "
+          f"{n_picks}, the cpu's taken on the card; the card's own differ at "
+          f"{moved}, each within {near:.2e} of a half-way point on one "
+          f"device")
+    print(f"small: {label} card vs cpu (bf16 towers): semantic logits rel "
+          f"{', '.join(f'{v:.2e}' for v in sem)}, RPN outputs rel "
+          f"{', '.join(f'{v:.2e}' for v in rpn)} (tol {BF16_SMALL_REL:g}); "
+          f"traced, not gated: dets {want['det_valid'].sum(-1).tolist()} cpu "
+          f"{got['det_valid'].sum(-1).tolist()} card ({' and '.join(same) or 'neither valid nor labels'} equal), "
+          f"share of dets at one index with boxes within 1 px "
+          f"{', '.join(f'{v:.3f}' for v in same_det)}, semantic agree "
+          f"{sseg:.5f}, num_keep card {got['num_keep'].tolist()} cpu "
+          f"{want['num_keep'].tolist()}, keep flips {len(flips)} "
+          f"({', '.join(flips) or 'none'}), panoptic agree outside them "
+          f"{', '.join(f'{a:.5f}' for a in agree)}")
+    if fails:
+        raise AssertionError(f"small {label} disagrees between card and cpu: "
+                             f"{fails}")
 
 
 def phase_small_aug(device="cuda"):
@@ -2518,7 +3181,7 @@ def phase_small_aug(device="cuda"):
 
 ZOO_HW = (800, 1333)  # mmdet v1's test scale (1333, 800)
 ZOO_PAD = (800, 1344)  # padded by size divisor 32
-ZOO_IMAGES = 5  # timed, after 1 warm-up
+ZOO_IMAGES = 3  # timed, after 1 warm-up
 ZOO_OTHERS_IMAGES = 2  # the "zoo others" phase's, for the script's time
 # the "zoo" phase's types, in order: Fast R-CNN takes the RPN's proposals
 ZOO_OTHERS = ("rpn", "fast_rcnn", "faster_rcnn", "double_head", "ms_rcnn",
@@ -2909,8 +3572,9 @@ def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     """Build ``name``'s detector at full width with seeded random weights,
     drive ``images`` images after 1 warm-up on the seeded image (``hw``
     padded to ``pad``), check the outputs, paste the masks at ``hw``,
-    profile one more image by the named ranges ``stages``, then call
-    ``probe(det, run)`` if given. Returns (outputs, launch counts)."""
+    profile one more image by the named ranges ``stages`` (none when
+    ``stages`` is None), then call ``probe(det, run)`` if given. Returns
+    (outputs, launch counts)."""
     import torch
     from vps_torch.models.detectors import build_detector, random_init_
     from vps_torch.ops.mask import paste_masks
@@ -2944,7 +3608,8 @@ def _zoo_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
     launches = _counts()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     nvalid = _zoo_check(name, out, det, *pad)
-    syncs = _zoo_profile(det, run, stages, label)
+    syncs = ("not profiled" if stages is None
+             else _zoo_profile(det, run, stages, label))
     extra = ""
     if "mask_logits" in out:
         thr = test_cfg["rcnn"]["mask_thr_binary"]
@@ -3339,13 +4004,19 @@ def _zoo_train_run(name, smi, device, proposals=None, hw=ZOO_HW, pad=ZOO_PAD,
 
 def phase_zoo_train(smi, names, device="cuda", **kw):
     """Each named detector of zoo_configs trained at full width
-    (_zoo_train_run); Fast R-CNN on the proposals of the RPN detector just
-    trained (predict on the same image). Returns the launch counts by
-    path."""
+    (_zoo_train_run; a profiled step for ZOO_TRAIN_LONG's only); Fast R-CNN
+    on the proposals of the RPN detector just trained (predict on the same
+    image). Returns the launch counts by path."""
     paths, props = {}, None
+    rest = {k: v for k, v in kw.items() if k != "stages"}
     for name in names:
+        # one profiled step for the three long ones only (a cut for the
+        # script's time)
+        stages = kw.get("stages", ZOO_TRAIN_STAGES
+                        if name in ZOO_TRAIN_LONG else None)
         launches, det = _zoo_train_run(
-            name, smi, device, props if name == "fast_rcnn" else None, **kw)
+            name, smi, device, props if name == "fast_rcnn" else None,
+            stages=stages, **rest)
         if name == "rpn":
             hw, pad = kw.get("hw", ZOO_HW), kw.get("pad", ZOO_PAD)
             out = det.predict(_zoo_image(device, hw, pad))
@@ -3514,7 +4185,7 @@ def phase_small_zoo_train(device="cuda", cfgs=None, label="small zoo train"):
 BACKBONE_NAMES = ("dcn_mask_rcnn", "mdconv_g4_faster_rcnn", "gcb_mask_rcnn",
                   "attention_faster_rcnn", "x101_mask_rcnn",
                   "hrnet_faster_rcnn")
-BACKBONE_IMAGES = 3  # timed, after 1 warm-up
+BACKBONE_IMAGES = 2  # timed, after 1 warm-up
 BACKBONE_TRAIN_STEPS = 2  # 1 warm-up + 1 timed
 _BACKBONE_RANGES = ("backbone", "backbone_dcn", "backbone_attention",
                   "backbone_gcb", "neck")
@@ -4445,7 +5116,7 @@ def phase_train_repeatable(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50,
 # ---------------------------------------------------------------------------
 
 GA_NAMES = ("ga_retinanet", "ga_rpn")
-GA_IMAGES = 2  # timed, after 1 warm-up
+GA_IMAGES = 1  # timed, after 1 warm-up
 GA_TRAIN_STEPS = 2  # 1 warm-up + 1 timed
 GA_STAGES = ("backbone_fpn", "ga_head", "feature_adaption", "ga_dets",
              "ga_proposals")
@@ -5109,8 +5780,10 @@ data = dict(val=dict(ann_file=r"{val_ann}", img_prefix=r"{val_img}",
 evaluation = dict(interval=1)
 checkpoint_config = dict(interval=4)
 log_config = dict(interval=1)
-total_epochs = 2
+total_epochs = {epochs}
 """
+# 1 epoch of 1 step and its eval (cut from 2 for the script's time)
+DIST_TRAIN_EPOCHS = 1
 
 
 def _free_port():
@@ -5470,7 +6143,7 @@ def phase_dist_step(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50):
     if term_err > DIST_TERM_TOL or grad_err > 1.0 \
             or param_err > DIST_PARAM_TOL:
         raise AssertionError("dist step: the ranks and the one process differ")
-    launches = {k: sum(rec["launches"][k] for rec in recs) for k in KERNELS}
+    launches = {k: sum(rec["launches"][k] for rec in recs) for k in COUNTED}
     want = _want(corr_f32=4, corr_backward=2)
     if on_card and launches != want:
         raise AssertionError(f"dist step: kernel launches {launches} != {want}")
@@ -5480,8 +6153,9 @@ def phase_dist_step(smi, device="cuda", h=TRAIN_H, w=TRAIN_W, depth=50):
 def phase_dist_train(smi, fx, device="cuda"):
     """The train tool on 2 ranks through ``vps_torch/tools/dist_train.sh``
     (NPROC=2; on the card both on card 0 over gloo), on the dataset phase's
-    fixture and config: 2 epochs of 1 step (one train video of 2 frames,
-    one sample a rank), the validation hook after each over the val videos
+    fixture and config: DIST_TRAIN_EPOCHS epochs of 1 step (one train
+    video of 2 frames, one sample a rank), the validation hook after each
+    over the val videos
     (video v on rank v % 2; merged on rank 0), rank 0's checkpoint. Fails
     unless both ranks exit 0, the work dir holds one checkpoint, the log
     says hosts=2 and holds each epoch's step and eval once (rank 1 logs
@@ -5497,7 +6171,8 @@ def phase_dist_train(smi, fx, device="cuda"):
     with open(cfg_path, "w") as f:
         f.write(DIST_TRAIN_CONFIG.format(base=fx["cfg"], val_ann=fx["val_ann"],
                                          val_img=fx["val_img"],
-                                         frames=fx["val_frames"]))
+                                         frames=fx["val_frames"],
+                                         epochs=DIST_TRAIN_EPOCHS))
         if fx["tiny"]:
             f.write(f'data["val"]["pipeline"] = dict(img_scale=({fx["w"]}, '
                     f'{fx["h"]}))\n')
@@ -5514,7 +6189,7 @@ def phase_dist_train(smi, fx, device="cuda"):
     _finish([_start(cmd, env)], "dist train")
     wall = time.perf_counter() - t0
 
-    epochs = 2
+    epochs = DIST_TRAIN_EPOCHS
     n_val = fx["val_videos"] * fx["val_frames"]
     ckpts = sorted(f for f in os.listdir(work) if f.endswith(".pth"))
     with open(os.path.join(work, "train.log")) as f:
@@ -5535,7 +6210,8 @@ def phase_dist_train(smi, fx, device="cuda"):
     print(f"dist train: vps_torch/tools/dist_train.sh NPROC=2 on "
           f"{'card 0 (gloo)' if on_card else 'the cpu (gloo)'}, "
           f"{'tiny' if fx['tiny'] else 'R-50'} f32 {fx['h']}x{fx['w']}, "
-          f"{epochs} epochs of 1 step (batch 1 a rank), the eval hook over "
+          f"{epochs} epoch{'s' if epochs > 1 else ''} of 1 step (batch 1 a "
+          f"rank), the eval hook over "
           f"{n_val} val frames each epoch: {wall:.1f}s wall with the ranks' "
           f"start; s/step {', '.join(f'{t:.4f}' for t in steps)} (rank 0's "
           f"log; every rank steps in lockstep); checkpoints {ckpts}; merged "
@@ -5557,15 +6233,15 @@ def phase_dist_train(smi, fx, device="cuda"):
             raise AssertionError(f"dist train: epoch {e}'s merge holds "
                                  f"{len(a)} + {len(b)} frames, "
                                  f"{len(a & b)} twice")
-    # per rank: 2 steps (2 correlations and 1 backward each) and its val
-    # video, 2 f32 correlations a frame, each epoch
+    # per rank, each epoch: 1 step (2 correlations and 1 backward) and its
+    # val video, 2 f32 correlations a frame
     per_rank = _want(corr_f32=2 * epochs + 2 * epochs * fx["val_frames"],
                      corr_backward=epochs)
     if on_card and any(c != per_rank for c in launches):
         raise AssertionError(f"dist train: kernel launches {launches}, want "
                              f"{per_rank} a rank")
     return {"dist train": {k: sum(c.get(k, 0) for c in launches)
-                           for k in KERNELS}}
+                           for k in COUNTED}}
 
 
 def phase_native(smi):
@@ -5642,6 +6318,50 @@ def phase_native(smi):
           + f" (RLE: a 1024x2048 mask); host of: {smi}")
 
 
+def small_phases():
+    """Every tiny model on the card against the CPU (they time nothing)."""
+    _timed("small", phase_small)
+    _timed("small window", phase_small, dcn_window=WINDOW)
+    _timed("small fuse", phase_small, kind="PanopticFuse")
+    _timed("small track", phase_small, kind="PanopticTrack")
+    _timed("small att", phase_small, refine_type="att")
+    for preset in SMALL_PRESETS:
+        _timed(f"small {preset}", phase_small, preset=preset)
+        _timed(f"small {preset} f32", phase_small, preset=preset, f32=True)
+    _timed("small aug", phase_small_aug)
+    _timed("small train", phase_small_train)
+    _timed("small ohem train", phase_small_train, sampler=dict(OHEM, num=32))
+    _timed("small zoo", phase_small_zoo)
+    _timed("small zoo train", phase_small_zoo_train)
+    _timed("small single stage", phase_small_single_stage)
+    _timed("small single stage train", phase_small_single_stage_train)
+    _timed("small backbones", phase_small_zoo, cfgs=_tiny_backbone_cfgs(),
+           label="small backbones")
+    _timed("small backbone ops", phase_small_backbone_ops)
+    _timed("small backbones train", phase_small_zoo_train,
+           cfgs=_tiny_backbone_cfgs(), label="small backbones train")
+    _timed("small ga", phase_small_ga)
+    _timed("small ga train", phase_small_ga_train)
+
+
+def phase_beside_smalls(smi, fx, device="cuda"):
+    """The phases whose work runs in child processes, "dist train" (on the
+    dataset phase's fixture ``fx``) and "preset accuracy", each started
+    from a thread of its own, beside the small phases in this process,
+    which time nothing: for the script's time. Their gates are as alone;
+    their seconds are taken beside the others. Returns dist train's launch
+    counts by path."""
+    with ThreadPoolExecutor(2) as beside:
+        dist = beside.submit(_timed, "dist train (beside the small phases)",
+                             phase_dist_train, smi, fx, device)
+        accuracy = beside.submit(_timed, "preset accuracy (beside the small "
+                                 "phases)", phase_preset_accuracy, smi,
+                                 device)
+        small_phases()
+        accuracy.result()
+        return dist.result()
+
+
 def _timed(name, fn, *args, **kw):
     """fn(*args, **kw), then a line of its wall seconds."""
     t0 = time.perf_counter()
@@ -5674,12 +6394,18 @@ def main() -> int:
                phase_kernels_correlation_backward),
         _timed("kernels windowed", phase_kernels_windowed)]
     later = {}
-    paths = {"main": _timed("main", phase_main, smi),
+
+    def after_train(det, ld, s_per_step):
+        later["dist world 1"] = _timed("dist world 1", phase_dist_world1, smi,
+                                       det, ld)
+        later["bf16 train"] = _timed("bf16 train", phase_bf16_train, smi, det,
+                                     ld.batch, s_per_step)
+
+    paths = {"main": _timed("main", phase_main, smi, then=lambda det, fr, fps:
+                            later.update(_timed("presets", phase_presets, smi,
+                                                det, fr, fps))),
              "window": _timed("window", phase_main, smi, dcn_window=WINDOW),
-             "train": _timed("train", phase_train, smi, then=lambda det, ld:
-                             later.update({"dist world 1": _timed(
-                                 "dist world 1", phase_dist_world1, smi, det,
-                                 ld)})),
+             "train": _timed("train", phase_train, smi, then=after_train),
              "fuse": _timed("fuse", phase_detector, smi, "PanopticFuse"),
              "track": _timed("track", phase_detector, smi, "PanopticTrack"),
              "aug": _timed("aug", phase_aug, smi),
@@ -5687,46 +6413,27 @@ def main() -> int:
                                   steps=OHEM_STEPS, sampler=OHEM),
              "dist step": _timed("dist step", phase_dist_step, smi)}
     paths.update(later)
-    _timed("small", phase_small)
-    _timed("small window", phase_small, dcn_window=WINDOW)
-    _timed("small fuse", phase_small, kind="PanopticFuse")
-    _timed("small track", phase_small, kind="PanopticTrack")
-    _timed("small att", phase_small, refine_type="att")
-    _timed("small aug", phase_small_aug)
-    _timed("small train", phase_small_train)
-    _timed("small ohem train", phase_small_train, sampler=dict(OHEM, num=32))
     paths.update(_timed("zoo", phase_zoo, smi,
                         ("mask_rcnn", "cascade_mask_rcnn", "htc")))
     paths.update({f"zoo {k}": v for k, v in _timed(
-        "zoo others", phase_zoo, smi, ZOO_OTHERS,
-        images=ZOO_OTHERS_IMAGES).items()})
-    _timed("small zoo", phase_small_zoo)
+        "zoo others", phase_zoo, smi, ZOO_OTHERS, images=ZOO_OTHERS_IMAGES,
+        stages=None).items()})
     paths.update(_timed("zoo train", phase_zoo_train, smi,
                         ZOO_TRAIN_LONG + ZOO_TRAIN_OTHERS))
-    _timed("small zoo train", phase_small_zoo_train)
     _timed("train repeatable", phase_train_repeatable, smi)
     paths.update(_timed("single stage", phase_single_stage, smi))
-    _timed("small single stage", phase_small_single_stage)
     paths.update(_timed("single stage train", phase_single_stage_train, smi))
-    _timed("small single stage train", phase_small_single_stage_train)
     paths.update(_timed("backbones", phase_backbones, smi))
-    _timed("small backbones", phase_small_zoo, cfgs=_tiny_backbone_cfgs(),
-           label="small backbones")
-    _timed("small backbone ops", phase_small_backbone_ops)
     paths.update(_timed("backbones train", phase_backbones_train, smi))
-    _timed("small backbones train", phase_small_zoo_train,
-           cfgs=_tiny_backbone_cfgs(), label="small backbones train")
     paths.update(_timed("ga", phase_ga, smi))
-    _timed("small ga", phase_small_ga)
     paths.update(_timed("ga train", phase_ga_train, smi))
-    _timed("small ga train", phase_small_ga_train)
     paths.update(_timed(
-        "dataset (robustness, detection eval and dist train included)",
-        phase_dataset,
+        "dataset (robustness, detection eval, tools, and dist train and "
+        "preset accuracy beside the small phases included)", phase_dataset,
         smi, numerics, then=(lambda fx: phase_robustness(smi, fx),
                              lambda fx: phase_detection_eval(smi, fx),
-                             lambda fx: _timed("dist train", phase_dist_train,
-                                               smi, fx))))
+                             lambda fx: _timed("tools", phase_tools, smi, fx),
+                             lambda fx: phase_beside_smalls(smi, fx))))
     _timed("native", phase_native, smi)
     paths.update(_timed("viper", phase_viper, smi))
     # launches: the run of the kernel's own path; by path: every path's run
@@ -5735,6 +6442,11 @@ def main() -> int:
     for k in kernels:
         k["launches"] = paths[own[k["name"]]][k["name"]]
         k["launches_by_path"] = {p: c[k["name"]] for p, c in paths.items()}
+        if k["name"] == "corr_backward":  # by route, where it launched
+            k["launches_by_route_and_path"] = {
+                p: {"f32": c["corr_backward"] - c["corr_backward_bf16"],
+                    "bf16": c["corr_backward_bf16"]}
+                for p, c in paths.items() if c["corr_backward"]}
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

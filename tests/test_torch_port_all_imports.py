@@ -23,8 +23,8 @@ def test_port_imports_no_jax():
     vps_tpu (static check over every module's import statements), the
     training, data, eval, tools, utils and config modules included (the
     detection evaluation's, the single-stage detectors', the backbones',
-    guided anchoring's, the data-parallel training's and the native host
-    library's too)."""
+    guided anchoring's, the data-parallel training's, the native host
+    library's and the last tools' too)."""
     banned = ("jax", "jaxlib", "flax", "optax", "vps_tpu")
     files = sorted((REPO / "vps_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
@@ -49,7 +49,11 @@ def test_port_imports_no_jax():
         "models/reppoints", "models/ssd_vgg", "models/detectors/single_stage",
         "ops/anchors", "ops/deform_conv", "models/plugins", "models/hrnet",
         "ops/roi_pool", "models/ga_heads", "ops/masked_conv",
-        "data/extra_aug", "train/dist", "utils/logging", "native/__init__")}
+        "data/extra_aug", "train/dist", "utils/logging", "native/__init__",
+        "tools/analyze_logs", "tools/upgrade_model_version",
+        "tools/publish_model", "tools/get_flops", "tools/profile_train",
+        "tools/profile_ops", "tools/profile_sections",
+        "tools/preset_accuracy")}
     assert required <= names, required - names
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -26,10 +26,13 @@ from vps_torch.ops.warp import channel_norm, flow_warp, resample2d
 def launch_counts():
     """The hand-written kernels' launch counts in this process, by kernel:
     the correlation's routes (``corr_bf16_tc``, ``corr_f32``),
-    ``corr_backward`` and ``dcw_fused``. Each wrapper counts where it
-    launches its kernel and nowhere else."""
+    ``corr_backward`` and ``dcw_fused``; and ``corr_backward_bf16``, the
+    part of ``corr_backward``'s launches on its bf16 route (the rest ran
+    the f32 one). Each wrapper counts where it launches its kernel and
+    nowhere else."""
     return dict(correlation.route_launches,
                 corr_backward=correlation_backward.launches,
+                corr_backward_bf16=correlation_backward.route_launches["bf16"],
                 dcw_fused=deform_conv2d_windowed.launches)
 
 

@@ -36,6 +36,7 @@ through it (``correlation_backward_reference``).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -167,11 +168,28 @@ def correlation(f1, f2, max_displacement: int, stride2: int = 1):
     ``_Correlation`` when a gradient is needed; CPU tensors through
     ``correlation_reference``, which autograd differentiates."""
     _check(f1, f2, max_displacement, stride2)
+    for calls in _RECORDERS:
+        calls.append((tuple(f1.shape), max_displacement, stride2))
     if f1.device.type == "cpu":
         return correlation_reference(f1, f2, max_displacement, stride2)
     if torch.is_grad_enabled() and (f1.requires_grad or f2.requires_grad):
         return _Correlation.apply(f1, f2, max_displacement, stride2)
     return _forward(f1, f2, max_displacement, stride2)
+
+
+_RECORDERS = []  # the open record_calls lists
+
+
+@contextlib.contextmanager
+def record_calls():
+    """While open, every call of ``correlation``, on either device, appends
+    (f1's shape, max_displacement, stride2) to the yielded list."""
+    calls = []
+    _RECORDERS.append(calls)
+    try:
+        yield calls
+    finally:
+        _RECORDERS.remove(calls)
 
 
 def correlation_backward(g, f1, f2, max_displacement: int, stride2: int = 1):
@@ -203,6 +221,8 @@ def correlation_backward(g, f1, f2, max_displacement: int, stride2: int = 1):
     cuda_build.check(lib, rc, "correlation backward kernel launch")
     with cuda_build.COUNT_LOCK:
         correlation_backward.launches += 1
+        correlation_backward.route_launches[
+            "bf16" if f1.dtype == torch.bfloat16 else "f32"] += 1
     return gf1, gf2
 
 
@@ -210,3 +230,5 @@ correlation.launches = 0  # forward kernel launches (CUDA path only)
 # the same launches by the kernel that ran: bf16 and f32 routes
 correlation.route_launches = {"corr_bf16_tc": 0, "corr_f32": 0}
 correlation_backward.launches = 0  # backward kernel launches (CUDA path only)
+# the same launches by the route that ran: f32 or bf16 in and out
+correlation_backward.route_launches = {"f32": 0, "bf16": 0}

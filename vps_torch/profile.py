@@ -2,12 +2,14 @@
 
     python -m vps_torch.profile [--frames 3] [--dcn-window R]
         [--detector PanopticFuseTrack|PanopticFuse|PanopticTrack]
+        [--preset half-flow] [--size 1024x2048] [--device cuda|cpu]
 
 Builds the detector (PanopticFuseTrack unless ``--detector``; PanopticFuse
 has no track head, PanopticTrack no flow and no fuse neck) at the R-50
-`half-flow` preset with seeded random weights (as chip_smoke.py does;
-``--dcn-window R`` sets ``panoptic.dcn_window``, the windowed semantic
-head), runs two warm-up frames, then profiles
+``--preset`` (``zoo.PRESETS``; `half-flow` unless given) with seeded random
+weights (as chip_smoke.py does; ``--dcn-window R`` sets
+``panoptic.dcn_window``, the windowed semantic head), over seeded frames of
+``--size`` (1024x2048 unless given), runs two warm-up frames, then profiles
 ``--frames`` steady-state frames with torch.profiler and prints: the frame
 time on the host clock without and with the profiler, the device-busy share
 of the profiled window (summed kernel time / wall time), device time per
@@ -17,8 +19,11 @@ PanopticFuseTrack.predict, those the detector has), the host syncs, the port's o
 kernels are launched through ctypes, outside any PyTorch op, and the
 profiler links a kernel to a named range only through an op: the stage sums
 leave them out, so they are listed on their own (correlation belongs to
-flownet2 and fuse_neck, the windowed DCN to semantic_head). Needs a card;
+flownet2 and fuse_neck, the windowed DCN to semantic_head). Runs on the
+card unless ``--device cpu`` (then the profile holds host times only);
 TF32 is off (``vps_torch.utils.numerics.f32_policy``).
+``vps_torch/tools/profile_sections.py`` is the same run under the repo
+tool's flags.
 
 ``train_step`` does the same for one training step of a model the caller
 built (chip_smoke.py's train phase calls it): the step split into forward,
@@ -38,7 +43,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vps_torch import zoo
+from vps_torch import resolve_device, zoo
 from vps_torch.models.detectors import (
     build_detector,
     empty_track_state,
@@ -194,7 +199,7 @@ def train_step(det, batch, optimizer, generator, prefix="train: ") -> None:
     _summary(p, stages_of(det, TRAIN_STAGES), 1, "step", prefix, top=8)
 
 
-def main(argv=None) -> None:
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--dcn-window", type=int, default=None,
@@ -202,50 +207,69 @@ def main(argv=None) -> None:
                          "run its windowed kernel (default: exact DCN)")
     ap.add_argument("--detector", default="PanopticFuseTrack",
                     choices=PANOPTIC_DETECTORS)
+    ap.add_argument("--preset", default="half-flow", choices=zoo.PRESETS)
+    ap.add_argument("--size", default="1024x2048", help="HxW")
+    ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    numerics = f32_policy()
-    if not torch.cuda.is_available():
-        raise SystemExit("vps_torch.profile needs an NVIDIA GPU")
-    h, w = 1024, 2048
+    return profile_frames(args.frames, args.dcn_window, args.detector,
+                          args.preset, args.size, args.device)
 
-    cfg = zoo.fusetrack_model_cfg()
-    cfg["type"] = args.detector
-    if args.detector == "PanopticFuse":
+
+def profile_frames(frames=3, dcn_window=None, detector="PanopticFuseTrack",
+                   preset="half-flow", size="1024x2048", device="cuda"):
+    """``main``'s run; returns the frame's ms without the profiler, the
+    device-busy share and the ``Profile``."""
+    numerics = f32_policy()
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("vps_torch.profile: no NVIDIA GPU; --device cpu "
+                         "gives host times only")
+    device = resolve_device(device)
+    on_card = device.type == "cuda"
+    h, w = (int(v) for v in size.split("x"))
+
+    cfg = zoo.preset_overrides(zoo.fusetrack_model_cfg(), preset)
+    cfg["type"] = detector
+    if detector == "PanopticFuse":
         cfg["track_head"] = None
-    elif args.detector == "PanopticTrack":
+    elif detector == "PanopticTrack":
         cfg["extra_neck"] = None
-    cfg["panoptic"]["dcn_window"] = args.dcn_window
+    cfg["panoptic"]["dcn_window"] = dcn_window
     det = random_init_(build_detector(cfg, test_cfg=zoo.fusetrack_test_cfg(),
-                                      device="cuda"), seed=0)
+                                      device=device), seed=0)
     rng = np.random.RandomState(0)
-    n = 2 + 2 * args.frames
-    frames = torch.from_numpy(rng.randn(n, 1, h, w, 3).astype(np.float32)).cuda()
+    n = 2 + 2 * frames
+    clip = torch.from_numpy(rng.randn(n, 1, h, w, 3).astype(np.float32)).to(
+        device)
 
     def run(lo, hi, carry):
-        out, carry = predict_video(det, frames[lo:hi], [False] * (hi - lo),
+        out, carry = predict_video(det, clip[lo:hi], [False] * (hi - lo),
                                    carry[0], carry[2], prev_feats=carry[1])
-        torch.cuda.synchronize()
+        if on_card:
+            torch.cuda.synchronize()
         return carry
 
-    _, carry = predict_video(det, frames[:1], [True],
-                             empty_track_state(256, device="cuda"), frames[0])
+    _, carry = predict_video(det, clip[:1], [True],
+                             empty_track_state(256, device=device), clip[0])
     carry = run(1, 2, carry)  # warm-up: first reset + one steady frame
     t0 = time.perf_counter()
-    carry = run(2, 2 + args.frames, carry)
-    plain_s = (time.perf_counter() - t0) / args.frames
+    carry = run(2, 2 + frames, carry)
+    plain_s = (time.perf_counter() - t0) / frames
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if on_card else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
-        carry = run(2 + args.frames, n, carry)
+        carry = run(2 + frames, n, carry)
         wall_s = time.perf_counter() - t0
     p = read_profile(prof, STAGES)
     busy = sum(p.kernels.values()) / (wall_s * 1e6)
-    print(f"frame ({args.detector}, dcn_window={args.dcn_window}): "
+    print(f"frame ({detector}, {preset}, dcn_window={dcn_window}): "
           f"{plain_s * 1e3:.1f} ms "
-          f"without the profiler, {wall_s / args.frames * 1e3:.1f} ms with it; "
-          f"device busy {busy:.3f} of the profiled window ({args.frames} "
-          f"frames, {h}x{w}); {describe(numerics)}")
-    _summary(p, stages_of(det), args.frames, "frame")
+          f"without the profiler, {wall_s / frames * 1e3:.1f} ms with it; "
+          f"device busy {busy:.3f} of the profiled window ({frames} "
+          f"frames, {h}x{w}, {device}); {describe(numerics)}")
+    _summary(p, stages_of(det), frames, "frame")
+    return plain_s * 1e3, busy, p
 
 
 if __name__ == "__main__":
